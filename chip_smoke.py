@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive repro_torch's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--phases build,kernels,index,main,parity]
+    python3 chip_smoke.py [--phases build,kernels,index,main,parity,serve]
 
 Run from the root of a checkout: it puts ``src/`` on ``sys.path`` itself,
 builds the CUDA kernels into ``build/repro_torch/`` with ``nvcc`` (sm_90a)
@@ -10,9 +10,11 @@ Phases (any failure exits non-zero and prints no result):
 
 1. build   — compile ``src/repro_torch/csrc/*.cu`` (one nvcc per source);
 2. kernels — each kernel against its plain PyTorch version on the card at
-             the main path's shapes, fp32 and int8, with times (CUDA events
-             around CUDA-graph replays), the plain version's time, the
-             bound and the library call's time where one exists;
+             the main path's shapes: the cache kernels in fp32 and int8,
+             the attention kernels in fp32 and bf16 at the serve shape and
+             at a long one (prefill 4,096; decode 32,768), with times (CUDA
+             events around CUDA-graph replays), the plain version's time,
+             the bound and the library call's time where one exists;
 3. index   — ``HNSWIndex.bulk_build`` of 100,000 Table-1 vectors at
              capacity 131,072: searches of 8, a delta flush, searches again,
              the kernel path against the plain path on the card;
@@ -21,7 +23,13 @@ Phases (any failure exits non-zero and prints no result):
              (lookup_batch, then insert_batch of the misses); every kernel
              the path uses must have launched;
 5. parity  — the same traffic at capacity 16,384, card against CPU: equal
-             decisions, except queries within 1e-5 of their τ.
+             decisions, except queries within 1e-5 of their τ;
+6. serve   — ``launch.serve.run_serving``: 256 Table-1 requests through
+             the cache (hnsw, fp32, device search) in front of
+             llama3.2-3b at full width and depth (seeded random bf16
+             weights), batch 8, prompt 64, 16 new tokens; the attention
+             kernels must have launched. Then the model at full width and
+             2 layers: decode against prefill, and card against CPU.
 
 The last lines are a ``{"kernels": [...]}`` object, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -41,6 +49,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32, outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 SCORE_ATOL = 1e-5              # fp32 scores: kernel and plain sum in other orders
 TAU_BAND = 1e-5                # card/CPU decisions may differ this close to τ
 D, HOP_N, FLAT_N, B, F, M = 384, 131_072, 1_048_576, 8, 32, 32
@@ -60,11 +69,13 @@ def log(msg: str) -> None:
 
 
 # ---------------------------------------------------------------- timing
-def graph_ms(torch, fns, replays: int = 5) -> float:
-    """Median device time of one call: the calls in ``fns`` (distinct
-    inputs, so repeated calls do not all hit a warm L2) are captured in
-    one CUDA graph, which removes the host's launch overhead, and the graph
-    is replayed between CUDA events."""
+def graph_ms(torch, fns, replays: int = 15, window_ms: float = 2.0) -> float:
+    """Median device time of one call. The calls in ``fns`` (distinct
+    inputs, so repeated calls do not all hit a warm L2) are captured in one
+    CUDA graph, which removes the host's launch overhead, repeated until
+    one replay lasts about ``window_ms`` (µs-scale kernels are timed over
+    hundreds of calls, not a few), and the graph is replayed ``replays``
+    times between CUDA events."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -72,28 +83,41 @@ def graph_ms(torch, fns, replays: int = 5) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for fn in fns:
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(replays):
+
+    def capture(reps):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                for fn in fns:
+                    fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        return graph
+
+    def replay_ms(graph):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / len(fns))
+        return start.elapsed_time(end)
+
+    graph = capture(1)
+    once = replay_ms(graph)
+    reps = max(1, min(256, int(window_ms / max(once, 1e-4))))
+    if reps > 1:
+        del graph
+        graph = capture(reps)
+    times = [replay_ms(graph) / (reps * len(fns)) for _ in range(replays)]
     del graph
     return statistics.median(times)
 
 
-def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, ops: float,
+          ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -156,7 +180,7 @@ def check_kernels(torch, dev) -> dict:
 
     for dtype, table, scales in (("float32", emb, None),
                                  ("int8", emb_q, emb_s)):
-        errs_fh, errs_gs = [], []
+        errs_fh, errs_gs, errs_gm = [], [], []
         for fr, q, qc, done, idx in variants:
             ids_k, route_k, res_k = fh.frontier_hop(table, nbrs, meta, fr, q, qc,
                                                     done, scales)
@@ -173,12 +197,21 @@ def check_kernels(torch, dev) -> dict:
             g_on_hop = gs.gather_scores(table, ids_k, q, scales)
             require(torch.equal(g_on_hop, route_k),
                     f"gather_scores and frontier_hop differ ({dtype})")
-        err_fh, err_gs = max(errs_fh), max(errs_gs)
+            # the masked gather: the plain version's -inf pattern, and
+            # gather_scores's bits wherever the category test passes
+            m_k = gs.gather_scores_masked(table, idx, q, cats, qc, scales)
+            m_p = gs.gather_scores_masked_plain(table, idx, q, cats, qc, scales)
+            errs_gm.append(max_err(m_k, m_p, torch))
+            passed = torch.isfinite(m_k)
+            require(torch.equal(m_k[passed], g_k[passed]),
+                    f"gather_scores_masked and gather_scores differ ({dtype})")
+        err_fh, err_gs, err_gm = max(errs_fh), max(errs_gs), max(errs_gm)
         require(err_fh <= SCORE_ATOL, f"frontier_hop {dtype}: err {err_fh}")
         require(err_gs <= SCORE_ATOL, f"gather_scores {dtype}: err {err_gs}")
+        require(err_gm <= SCORE_ATOL, f"gather_scores_masked {dtype}: err {err_gm}")
         # This run's data: live lanes of every variant, unique rows read.
         row_b = D * 4 if scales is None else D + 4
-        hop_bytes, hop_ops, g_bytes, g_ops = [], [], [], []
+        hop_bytes, hop_ops, g_bytes, g_ops, m_bytes, m_ops = [], [], [], [], [], []
         for fr, q, qc, done, idx in variants:
             ids, _, _ = fh.frontier_hop_plain(table, nbrs, meta, fr, q, qc, done, scales)
             live = ids[ids >= 0]
@@ -192,6 +225,12 @@ def check_kernels(torch, dev) -> dict:
             g_bytes.append(gl.unique().numel() * row_b + idx.numel() * 8
                            + q.numel() * 4)
             g_ops.append(2 * D * gl.numel())
+            qce = qc[:, None].expand_as(idx)
+            ok = (idx >= 0) & ((qce < 0) | (cats[idx.clamp(min=0).long()] == qce))
+            ml = idx[ok]
+            m_bytes.append(ml.unique().numel() * row_b + gl.unique().numel() * 4
+                           + idx.numel() * 8 + q.numel() * 4 + B * 4)
+            m_ops.append(2 * D * ml.numel())
         hop_fns = [lambda v=v: fh.frontier_hop(table, nbrs, meta, v[0], v[1], v[2],
                                                v[3], scales) for v in variants]
         hop_plain = [lambda v=v: fh.frontier_hop_plain(table, nbrs, meta, v[0], v[1],
@@ -201,8 +240,13 @@ def check_kernels(torch, dev) -> dict:
                  for v in variants]
         g_plain = [lambda v=v: gs.gather_scores_plain(table, v[4], v[1], scales)
                    for v in variants]
+        m_fns = [lambda v=v: gs.gather_scores_masked(table, v[4], v[1], cats, v[2], scales)
+                 for v in variants]
+        m_plain = [lambda v=v: gs.gather_scores_masked_plain(table, v[4], v[1], cats, v[2],
+                                                             scales) for v in variants]
         b_hop = bound(statistics.mean(hop_bytes), statistics.mean(hop_ops))
         b_g = bound(statistics.mean(g_bytes), statistics.mean(g_ops))
+        b_m = bound(statistics.mean(m_bytes), statistics.mean(m_ops))
         out[("frontier_hop", dtype)] = dict(
             max_abs_err=err_fh, ms=graph_ms(torch, hop_fns),
             plain_ms=graph_ms(torch, hop_plain), bound_ms=b_hop[0],
@@ -212,8 +256,12 @@ def check_kernels(torch, dev) -> dict:
             max_abs_err=err_gs, ms=graph_ms(torch, g_fns),
             plain_ms=graph_ms(torch, g_plain), bound_ms=b_g[0],
             bound_by=b_g[1], library_ms=None, bytes=statistics.mean(g_bytes))
-        log(f"kernels: frontier_hop {dtype} {out[('frontier_hop', dtype)]}")
-        log(f"kernels: gather_scores {dtype} {out[('gather_scores', dtype)]}")
+        out[("gather_scores_masked", dtype)] = dict(
+            max_abs_err=err_gm, ms=graph_ms(torch, m_fns),
+            plain_ms=graph_ms(torch, m_plain), bound_ms=b_m[0],
+            bound_by=b_m[1], library_ms=None, bytes=statistics.mean(m_bytes))
+        for name in ("frontier_hop", "gather_scores", "gather_scores_masked"):
+            log(f"kernels: {name} {dtype} {out[(name, dtype)]}")
     del emb, emb_q, emb_s, nbrs, valid, cats, meta, variants
     torch.cuda.empty_cache()
 
@@ -307,6 +355,128 @@ def check_kernels(torch, dev) -> dict:
                     bound_ms=b_sc[0], bound_by=b_sc[1], bytes=2 * R * row_b + R * 4)
     out[("scatter_rows", "float32")] = dict(max_abs_err=sc_err, **timing)
     log(f"kernels: scatter_rows emb fp32 R=64 {out[('scatter_rows', 'float32')]}")
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- attention
+# Serve shape: llama3.2-3b (Hq=24, Hkv=8, dh=128) at batch 8, prompt 64, 16
+# new tokens; long prefill 4,096; decode_32k 32,768 positions.
+HQ, HKV, DH = 24, 8, 128
+
+
+def attn_close(torch, got, want) -> float:
+    """Largest |got - want|. fp32 must agree within SCORE_ATOL (summation
+    order); a bf16 output rounds the same fp32 value, so the two may differ
+    by one bf16 step: 2^-7 of the larger magnitude (plus SCORE_ATOL)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if got.dtype == torch.bfloat16:
+        tol = torch.maximum(g.abs(), w.abs()) * 2.0 ** -7 + SCORE_ATOL
+    else:
+        tol = torch.full_like(err, SCORE_ATOL)
+    require(bool(torch.isfinite(g).all()), "attention: non-finite output")
+    require(bool((err <= tol).all()),
+            f"attention {got.dtype}: err {float(err.max())} past its tolerance")
+    return float(err.max())
+
+
+def sdpa_ms(torch, q, k, v, *, causal, mask=None) -> float:
+    """The library yardstick: one scaled_dot_product_attention call on the
+    same inputs (timed here only; the port never calls it)."""
+    import torch.nn.functional as F
+    return graph_ms(torch, [lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal, enable_gqa=True)])
+
+
+def check_attention(torch, dev) -> dict:
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2027)
+    out = {}
+
+    def rnd(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # -- flash_attention, causal: serve shape and a long prefill ----------
+    for label, B, S in (("serve", 8, 64), ("long", 1, 4096)):
+        for dtype in (torch.float32, torch.bfloat16):
+            sets = [(rnd(B, HQ, S, DH, dtype=dtype), rnd(B, HKV, S, DH, dtype=dtype),
+                     rnd(B, HKV, S, DH, dtype=dtype)) for _ in range(2 if S < 1024 else 1)]
+            err = max(attn_close(torch, fa.flash_attention(q, k, v, causal=True),
+                                 fa.flash_attention_plain(q, k, v, causal=True))
+                      for q, k, v in sets)
+            esz = sets[0][0].element_size()
+            nbytes = esz * (2 * B * HQ * S * DH + 2 * B * HKV * S * DH)
+            flops = 4 * B * HQ * DH * S * (S + 1) // 2      # causal pairs
+            rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+            b_fa = bound(nbytes, flops, rate)
+            q, k, v = sets[0]
+            out[("flash_attention", label, str(dtype)[6:])] = dict(
+                max_abs_err=err,
+                ms=graph_ms(torch, [lambda s=s: fa.flash_attention(*s, causal=True)
+                                    for s in sets]),
+                plain_ms=graph_ms(torch, [lambda s=s: fa.flash_attention_plain(
+                    *s, causal=True) for s in sets]),
+                bound_ms=b_fa[0], bound_by=b_fa[1],
+                library_ms=sdpa_ms(torch, q, k, v, causal=True), bytes=nbytes,
+                flops=flops)
+            log(f"kernels: flash_attention {label} B={B} S={S} {dtype} "
+                f"{out[('flash_attention', label, str(dtype)[6:])]}")
+    # window, softcap, kv_offset and an Skv edge off the tile grid: held,
+    # not timed
+    for dtype in (torch.float32, torch.bfloat16):
+        q = rnd(2, HQ, 100, DH, dtype=dtype)
+        k, v = rnd(2, HKV, 164, DH, dtype=dtype), rnd(2, HKV, 164, DH, dtype=dtype)
+        for kw in (dict(causal=True, window=48, kv_offset=64),
+                   dict(causal=False, softcap=30.0), dict(causal=True, kv_offset=64)):
+            attn_close(torch, fa.flash_attention(q, k, v, **kw),
+                       fa.flash_attention_plain(q, k, v, **kw))
+
+    # -- decode_attention through the model's (B, S, Hkv, dh) cache view ---
+    for label, B, S in (("serve", 8, 80), ("decode_32k", 8, 32768)):
+        for dtype in (torch.float32, torch.bfloat16):
+            sets = []
+            for i in range(2 if S < 1024 else 1):
+                kc = rnd(B, S, HKV, DH, dtype=dtype)
+                vc = rnd(B, S, HKV, DH, dtype=dtype)
+                lo = 65 if S < 1024 else 1
+                lens = torch.randint(lo, S + 1, (B,), generator=gen, device=dev,
+                                     dtype=torch.int32)
+                lens[0] = S
+                if i == 1:
+                    lens[1] = 0                               # attends to nothing
+                sets.append((rnd(B, HQ, DH, dtype=dtype), kc.transpose(1, 2),
+                             vc.transpose(1, 2), lens))
+            err = 0.0
+            for q, k, v, lens in sets:
+                got = da.decode_attention(q, k, v, lens)
+                err = max(err, attn_close(torch, got, da.decode_attention_plain(
+                    q, k, v, kv_len=lens)))
+                require(not bool(got[lens == 0].any()), "decode: kv_len 0 must give 0")
+                # softcap: held, not timed
+                attn_close(torch, da.decode_attention(q, k, v, lens, softcap=30.0),
+                           da.decode_attention_plain(q, k, v, kv_len=lens, softcap=30.0))
+            esz = sets[0][0].element_size()
+            live = statistics.mean(int(s[3].sum()) for s in sets)
+            nbytes = esz * (2 * live * HKV * DH + 2 * B * HQ * DH) + 4 * B
+            flops = 4 * HQ * DH * live
+            b_da = bound(nbytes, flops, BF16_OPS_PER_S if dtype == torch.bfloat16
+                         else FP32_OPS_PER_S)
+            q, k, v, lens = sets[0]
+            mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+            out[("decode_attention", label, str(dtype)[6:])] = dict(
+                max_abs_err=err,
+                ms=graph_ms(torch, [lambda s=s: da.decode_attention(*s) for s in sets]),
+                plain_ms=graph_ms(torch, [lambda s=s: da.decode_attention_plain(
+                    *s[:3], kv_len=s[3]) for s in sets]),
+                bound_ms=b_da[0], bound_by=b_da[1],
+                library_ms=sdpa_ms(torch, q[:, :, None], k, v, causal=False, mask=mask),
+                bytes=nbytes, flops=flops)
+            log(f"kernels: decode_attention {label} B={B} S={S} {dtype} "
+                f"{out[('decode_attention', label, str(dtype)[6:])]}")
     torch.cuda.empty_cache()
     return out
 
@@ -539,6 +709,238 @@ def check_card_vs_cpu(steps: int) -> None:
                 f"CPU agree")
 
 
+# ---------------------------------------------------------------- phase 6
+SERVE_ARCH = "llama3.2-3b"
+# bf16 logits (magnitude ~4): card and CPU, or decode and prefill, round
+# activations at other places (cuBLAS and the CPU sum in other orders, the
+# decode and flash kernels differ in summation order), and one bf16 step of
+# a hidden state moves a logit by ~1e-2; 0.1 bounds two layers of that
+# (0.031 and 0.038 measured on an H100).
+LOGIT_TOL = 0.1
+
+
+def kernel_summary(torch, prof, wall_us: float) -> str:
+    """Summed self device time of a torch.profiler window against its host
+    wall time, and the largest kernels by name."""
+    from torch.autograd import DeviceType
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if busy_us == 0:
+        return "device time not measured (the profiler saw no device events)"
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    names = ", ".join(f"{e.key[:40]} {e.self_device_time_total / busy_us:.0%}"
+                      for e in top)
+    n_kernels = sum(e.count for e in kernels)
+    return (f"{n_kernels} device kernels, busy {busy_us:.1f} us of {wall_us:.1f} us wall "
+            f"under the profiler (idle share {1 - busy_us / wall_us:.3f}); top kernels: "
+            f"{names}")
+
+
+class ModelTimer:
+    """CUDA events around every ``Model.prefill`` and ``Model.decode_step``
+    (read after the run, so the serve loop never waits for them), and one
+    call of each (the fourth) under torch.profiler instead."""
+
+    def __init__(self, torch, model_cls):
+        self.torch, self.cls = torch, model_cls
+        self.events = {"prefill": [], "decode_step": []}
+        self.profiles = {}
+        self.params = None
+        self._orig = {}
+
+    def __enter__(self):
+        for name in self.events:
+            self._orig[name] = getattr(self.cls, name)
+            setattr(self.cls, name, self._wrap(name, self._orig[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self._orig.items():
+            setattr(self.cls, name, orig)
+
+    def _wrap(self, name, orig):
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        def call(model, params, *args, **kw):
+            self.params = params
+            if len(self.events[name]) == 3 and name not in self.profiles:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    out = orig(model, params, *args, **kw)
+                    torch.cuda.synchronize()
+                    wall_us = (time.perf_counter() - t0) * 1e6
+                self.profiles[name] = kernel_summary(torch, prof, wall_us)
+                return out
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(model, params, *args, **kw)
+            end.record()
+            self.events[name].append((start, end, int(out[0].shape[0])))
+            return out
+        return call
+
+    def ms(self, name) -> list[float]:
+        return [s.elapsed_time(e) for s, e, _ in self.events[name]]
+
+
+def run_serve(torch, counters, n_requests: int) -> dict:
+    """The port's run_serving on the card: llama3.2-3b at full width and
+    depth, seeded random weights drawn on the device, SemanticCache (hnsw,
+    fp32, device search) with Table-1 traffic, batch 8, prompt 64, 16 new
+    tokens."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_serving
+    from repro_torch.models.model import Model
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    with ModelTimer(torch, Model) as timer:
+        t0 = time.perf_counter()
+        out = run_serving(cfg, n_requests=n_requests, max_batch=8, prompt_len=64,
+                          max_new_tokens=16, seed=0, index_kind="hnsw",
+                          use_device=True, emb_dtype="float32", telemetry=True,
+                          device="cuda", log=lambda m: log(f"serve: {m}"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in counters.items()}
+    for k in ("flash_attention", "decode_attention", "frontier_hop", "gather_scores"):
+        require(counts[k] > 0, f"serve: {k} never launched")
+    peak = torch.cuda.max_memory_allocated()
+    snap = out["per_category"]
+    misses = round(out["served"] * (1 - out["hit_rate"]))
+    require(out["served"] == n_requests, "serve: not every request was served")
+    require(out["model_tokens"] == 16 * misses and misses > 0,
+            "serve: every miss must generate 16 model tokens")
+    pre, dec = timer.ms("prefill"), timer.ms("decode_step")
+    batches = [b for *_, b in timer.events["decode_step"]]
+    dec_s = sum(dec) / 1e3
+    step = decode_step_bound(timer.params, cfg, statistics.mean(batches), prompt_len=64,
+                             new_tokens=16)
+    numbers = dict(
+        served=out["served"], hit_rate=out["hit_rate"], model_tokens=out["model_tokens"],
+        model_batches=len(pre) + ("prefill" in timer.profiles),
+        prefill_ms_p50=float(np.percentile(pre, 50)),
+        prefill_ms_p99=float(np.percentile(pre, 99)),
+        decode_ms_p50=float(np.percentile(dec, 50)),
+        decode_ms_p99=float(np.percentile(dec, 99)),
+        decode_tokens_per_s=sum(batches) / dec_s,
+        tokens_per_s=out["model_tokens"] / wall, wall_s=wall,
+        peak_gib=peak / 2**30, launches=counts, **step)
+    rates = {c: round(row["hit_rate"], 4) for c, row in sorted(snap.items())
+             if "hit_rate" in row}
+    log(f"serve: {out['served']} served, {misses} served by the model, "
+        f"{out['model_tokens']} model tokens; hit rates {rates}")
+    log(f"serve: prefill ms per batch p50 {numbers['prefill_ms_p50']:.3f} p99 "
+        f"{numbers['prefill_ms_p99']:.3f} ({len(pre)} timed); decode ms per token "
+        f"p50 {numbers['decode_ms_p50']:.3f} p99 {numbers['decode_ms_p99']:.3f} "
+        f"({len(dec)} timed, mean batch {statistics.mean(batches):.2f})")
+    log(f"serve: {numbers['decode_tokens_per_s']:.1f} decode tokens/s, "
+        f"{numbers['tokens_per_s']:.1f} model tokens/s over {wall:.2f} s wall; "
+        f"peak device memory {numbers['peak_gib']:.2f} GiB; launches {counts}")
+    log(f"serve: decode step bound {step['decode_bound_ms']:.4f} ms "
+        f"({step['decode_bytes'] / 1e9:.4f} GB at the mean batch: bf16 layers, bf16 "
+        f"head, live KV); the fp32 head copy the port reads instead adds "
+        f"{step['fp32_head_extra_ms']:.4f} ms")
+    for name, text in timer.profiles.items():
+        log(f"serve: profile of one {name}: {text}")
+    return numbers
+
+
+def tree_sum(tree, of) -> int:
+    """``of(tensor)`` summed over a parameter tree (dicts, lists, tensors)."""
+    if isinstance(tree, dict):
+        return sum(tree_sum(v, of) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tree_sum(v, of) for v in tree)
+    return of(tree)
+
+
+def decode_step_bound(params, cfg, batch: float, *, prompt_len: int,
+                      new_tokens: int) -> dict:
+    """The least time of one decode step at ``batch`` sequences: the bytes
+    it must read (every layer weight, the bf16 head, the final norm, the
+    batch's embedding rows and its live K/V rows, at the mean live length
+    over the steps of a generate) at the HBM rate, or its products at the
+    bf16 tensor-core rate, whichever is larger. The port's fp32 head copy
+    is a cost of its design, reported apart."""
+    head = params["head"]
+    esz = head.element_size()
+    read = [params["layers"], params["final_norm"], head]
+    # decode step i of a generate attends prompt_len + 1 + i positions
+    live = prompt_len + 1 + (new_tokens - 2) / 2
+    kv = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * esz * live * batch
+    nbytes = tree_sum(read, lambda t: t.nbytes) + kv + batch * cfg.d_model * esz
+    flops = 2 * batch * tree_sum(read, lambda t: t.numel())
+    t, by = bound(nbytes, flops, BF16_OPS_PER_S)
+    extra = head.numel() * (4 - esz)
+    return dict(decode_bound_ms=t, decode_bound_by=by, decode_bytes=nbytes,
+                fp32_head_extra_ms=extra / HBM_BYTES_PER_S * 1e3)
+
+
+def tree_to(tree, device):
+    """A copy of a parameter tree (dicts, lists, tensors) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def check_model(torch) -> dict:
+    """llama3.2-3b at full width and 2 layers, one seeded set of weights on
+    the card and a copy on the CPU: decode of token S-1 against the prefill
+    of S tokens on the card, and card against CPU logits and greedy tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=2)
+    card = Model(cfg, device="cuda")
+    params = card.init_params(0)
+    host = tree_to(params, "cpu")
+    cpu = Model(cfg, device="cpu")
+    V, B, S = cfg.vocab_size, 2, 64
+    gen = torch.Generator().manual_seed(7)
+    toks = torch.randint(2, V, (B, S), generator=gen, dtype=torch.int32)
+    lf, _, _ = card.prefill(params, {"tokens": toks}, S + 8)
+    lp, cache, kvl = card.prefill(params, {"tokens": toks[:, :S - 1]}, S + 8)
+    ld, _, _ = card.decode_step(params, cache, toks[:, S - 1].cuda(), kvl)
+    err_dp = float((lf[:, :V] - ld[:, :V]).abs().max())
+    require(err_dp <= LOGIT_TOL, f"model: decode vs prefill err {err_dp}")
+    lc, cc, kc = card.prefill(params, {"tokens": toks}, S + 8)
+    lh, ch, kh = cpu.prefill(host, {"tokens": toks}, S + 8)
+    errs, agree, clear_n = [], 0, 0
+    for step in range(5):
+        a, b = lc[:, :V].cpu(), lh[:, :V]
+        require(bool(torch.isfinite(a).all()), "model: non-finite logits on the card")
+        errs.append(float((a - b).abs().max()))
+        top2 = b.topk(2, dim=1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * LOGIT_TOL
+        require(torch.equal(a.argmax(1)[clear], b.argmax(1)[clear]),
+                f"model: greedy tokens differ at step {step}")
+        agree += int((a.argmax(1) == b.argmax(1)).sum())
+        clear_n += int(clear.sum())
+        tok = b.argmax(1).to(torch.int32)
+        lc, cc, kc = card.decode_step(params, cc, tok.cuda(), kc)
+        lh, ch, kh = cpu.decode_step(host, ch, tok, kh)
+    require(max(errs) <= LOGIT_TOL, f"model: card vs CPU logits err {max(errs)}")
+    log(f"model: 2-layer full width, decode vs prefill max |dlogit| {err_dp:.5f}; card vs "
+        f"CPU max |dlogit| {max(errs):.5f} over prefill + 4 decode steps (tolerance "
+        f"{LOGIT_TOL}); greedy tokens equal {agree}/{5 * B} ({clear_n} beyond the margin)")
+    del card, params, cache, cc
+    torch.cuda.empty_cache()
+    return dict(decode_vs_prefill=err_dp, card_vs_cpu=max(errs))
+
+
 # ---------------------------------------------------------------- main
 KERNELS = {
     "frontier_hop": ("src/repro_torch/csrc/frontier_hop.cu",
@@ -549,10 +951,20 @@ KERNELS = {
                   "src/repro/kernels/flat_topk.py:127"),
     "scatter_rows": ("src/repro_torch/csrc/scatter_rows.cu",
                      "src/repro/kernels/scatter_update.py:66"),
+    "gather_scores_masked": ("src/repro_torch/csrc/gather_scores.cu",
+                             "src/repro/kernels/gather_scores.py:173"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:117"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:103"),
 }
+# The row's own numbers come from the main path's shape and dtype; the
+# others ride along under "variants".
+MAIN_KEY = {"flash_attention": ("serve", "bfloat16"),
+            "decode_attention": ("serve", "bfloat16")}
 
 
-PHASES = ("build", "kernels", "index", "main", "parity")
+PHASES = ("build", "kernels", "index", "main", "parity", "serve")
 
 
 def main(argv: list[str]) -> int:
@@ -576,12 +988,16 @@ def main(argv: list[str]) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False     # plain versions in fp32
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flat_topk import flat_topk
     from repro_torch.kernels.frontier_hop import frontier_hop
-    from repro_torch.kernels.gather_scores import gather_scores
+    from repro_torch.kernels.gather_scores import gather_scores, gather_scores_masked
     from repro_torch.kernels.scatter_update import scatter_rows
     counters = {"frontier_hop": frontier_hop, "gather_scores": gather_scores,
-                "flat_topk": flat_topk, "scatter_rows": scatter_rows}
+                "flat_topk": flat_topk, "scatter_rows": scatter_rows,
+                "gather_scores_masked": gather_scores_masked,
+                "flash_attention": flash_attention, "decode_attention": decode_attention}
     dev = torch.device("cuda")
     log(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
@@ -597,6 +1013,7 @@ def main(argv: list[str]) -> int:
         if "kernels" in phases:
             t0 = time.perf_counter()
             numbers = check_kernels(torch, dev)
+            numbers.update(check_attention(torch, dev))
             log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
         if "index" in phases:
             t0 = time.perf_counter()
@@ -610,6 +1027,11 @@ def main(argv: list[str]) -> int:
             t0 = time.perf_counter()
             check_card_vs_cpu(steps=50)
             log(f"phase parity: {time.perf_counter() - t0:.1f} s")
+        if "serve" in phases:
+            t0 = time.perf_counter()
+            served = run_serve(torch, counters, n_requests=256)
+            check_model(torch)
+            log(f"phase serve: {time.perf_counter() - t0:.1f} s")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -618,17 +1040,21 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: partial run (--phases); no result", file=sys.stderr)
         return 4
 
+    # launches: the attention kernels from the serve path, the cache
+    # kernels from the main path (gather_scores_masked is on neither)
+    launches.update({k: served["launches"][k]
+                     for k in ("flash_attention", "decode_attention")})
+    fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = []
     for name, (source, replaces) in KERNELS.items():
-        main_n = numbers[(name, "float32")]
+        key = (name, *MAIN_KEY.get(name, ("float32",)))
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": launches[name]}
-        row.update({k: main_n[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                           "bound_ms", "bound_by", "library_ms")})
-        if (name, "int8") in numbers:
-            row["int8"] = {k: numbers[(name, "int8")][k]
-                           for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")}
-            row["max_abs_err"] = max(row["max_abs_err"], row["int8"]["max_abs_err"])
+        row.update({f: numbers[key][f] for f in fields})
+        variants = {"_".join(k[1:]): {f: v[f] for f in fields}
+                    for k, v in numbers.items() if k[0] == name and k != key}
+        if variants:
+            row["variants"] = variants
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,5 +1,6 @@
-"""repro_torch: the category-aware semantic cache in PyTorch, with
-hand-written Hopper (sm_90a) CUDA kernels for its device data plane.
+"""repro_torch: the category-aware semantic cache and the LLM behind it in
+PyTorch, with hand-written Hopper (sm_90a) CUDA kernels for the cache's
+device data plane and the model's attention.
 
 A port of ``repro`` (the JAX package, which stays the reference). It
 imports ``torch`` and ``numpy`` and nothing of ``jax`` or ``repro``:
@@ -9,10 +10,18 @@ imports ``torch`` and ``numpy`` and nothing of ``jax`` or ``repro``:
                             host modules they need (policy, admission,
                             storage, workload, ...).
 - ``repro_torch.kernels`` — the CUDA kernels (``frontier_hop``,
-                            ``gather_scores``, ``flat_topk``,
-                            ``scatter_rows``), each beside its plain
-                            PyTorch version, behind ``ops``.
-- ``repro_torch.obs``     — deterministic spans and histograms.
+                            ``gather_scores``, ``gather_scores_masked``,
+                            ``flat_topk``, ``scatter_rows``,
+                            ``flash_attention``, ``decode_attention``),
+                            each beside its plain PyTorch version,
+                            behind ``ops``.
+- ``repro_torch.models``  — the dense decoder (llama3.2-3b and kin):
+                            prefill and decode through the attention
+                            kernels, an in-place KV cache; ``configs``
+                            holds the ten architectures.
+- ``repro_torch.serving`` — the engine: cache in front of the model;
+                            ``launch.serve`` is its driver and CLI.
+- ``repro_torch.obs``     — deterministic spans, histograms and exports.
 
 Entry points run on the card: ``device=None`` resolves to ``"cuda"`` and
 raises when there is none; pass ``device="cpu"`` for the CPU.

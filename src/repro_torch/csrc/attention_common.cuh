@@ -1,0 +1,60 @@
+// Helpers shared by the attention kernels: fp32 <-> element conversions,
+// warp reductions, and the running-max floor of the online softmax.
+#pragma once
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace repro_torch {
+namespace attn {
+
+constexpr float kNegInf = -1e30f;   // the TPU kernels' NEG_INF
+constexpr unsigned kAll = 0xffffffffu;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// Round to the output type (bf16: round to nearest even, as torch's .to()).
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(kAll, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kAll, x, off);
+  return x;
+}
+
+// Unpack one 16-byte word into fp32: 4 floats or 8 bf16.
+__device__ __forceinline__ void unpack16(const uint4& w, float* out, float) {
+  out[0] = __uint_as_float(w.x);
+  out[1] = __uint_as_float(w.y);
+  out[2] = __uint_as_float(w.z);
+  out[3] = __uint_as_float(w.w);
+}
+
+__device__ __forceinline__ void unpack16(const uint4& w, float* out, __nv_bfloat16) {
+  const unsigned words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = __uint_as_float(words[i] << 16);
+    out[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
+  }
+}
+
+// Set a kernel's dynamic shared memory ceiling once, when it needs more
+// than the default 48 KB.
+template <typename Kernel>
+__host__ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace attn
+}  // namespace repro_torch

@@ -26,11 +26,15 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: name -> argument types (all return int = cudaError_t).
 SIGNATURES = {
     "scatter_rows_launch": [P, P, P, LL, LL, LL, I, P],
     "gather_scores_launch": [P, P, P, P, P, LL, I, I, I, I, P],
+    "gather_scores_masked_launch": [P, P, P, P, P, P, P, LL, I, I, I, I, P],
+    "flash_attention_launch": [P, P, P, P, P, I, I, I, I, I, I, I, I, I,
+                               F, F, I, P],
+    "decode_attention_launch": [P, P, P, P, P, P, I, I, I, I, I, F, F, I, P],
     "frontier_hop_launch": [P, P, P, P, P, P, P, P, P, P, P,
                             LL, I, I, I, I, I, P],
     "flat_topk_launch": [P, P, P, P, P, P, P, P, P, P,

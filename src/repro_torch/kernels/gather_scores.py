@@ -14,9 +14,12 @@ order, xor-shuffle tree), so its scores are bit-identical to
 exactly in the beam merge. A padding id (< 0) loads nothing and scores
 -inf.
 
-``gather_scores_masked`` (the category-masked variant) is not on the
-lookup path and has no CUDA kernel yet; ``ops.hop_scores`` raises for it
-on the card.
+``gather_scores_masked`` replaces the TPU kernel
+``gather_scores.py:gather_scores_masked`` with the same CUDA kernel and a
+category test: a candidate of another category than its query's (query
+category < 0 = wildcard) scores -inf and loads no row; one that passes
+goes through the same dot, so its score is bit-equal to
+``gather_scores``'s. ``ops.hop_scores`` with categories launches it.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 from repro_torch.kernels import _build, ref
 
 gather_scores_plain = ref.gather_scores_ref
+gather_scores_masked_plain = ref.gather_scores_masked_ref
 
 
 def check_table(name: str, table: torch.Tensor,
@@ -51,6 +55,21 @@ def check_table(name: str, table: torch.Tensor,
         raise ValueError(f"{name}: table must be 16-byte aligned")
 
 
+def _check_gather(name: str, table: torch.Tensor, indices: torch.Tensor,
+                  queries: torch.Tensor, scales: torch.Tensor | None,
+                  *more: torch.Tensor) -> torch.Tensor:
+    """Check a CUDA call's inputs and allocate its (B, K) output."""
+    tensors = (table, indices, queries, *more) + (() if scales is None else (scales,))
+    _build.require_cuda(name, *tensors)
+    check_table(name, table, scales)
+    B, K = indices.shape
+    if indices.dtype != torch.int32:
+        raise ValueError(f"{name}: indices must be int32")
+    if queries.dtype != torch.float32 or queries.shape != (B, table.shape[1]):
+        raise ValueError(f"{name}: queries must be (B, d) float32")
+    return torch.empty((B, K), dtype=torch.float32, device=table.device)
+
+
 def gather_scores(table: torch.Tensor, indices: torch.Tensor,
                   queries: torch.Tensor,
                   scales: torch.Tensor | None = None) -> torch.Tensor:
@@ -59,15 +78,8 @@ def gather_scores(table: torch.Tensor, indices: torch.Tensor,
     at padding). A CPU table takes the plain version."""
     if table.device.type == "cpu":
         return gather_scores_plain(table, indices, queries, scales)
-    tensors = (table, indices, queries) + (() if scales is None else (scales,))
-    _build.require_cuda("gather_scores", *tensors)
-    check_table("gather_scores", table, scales)
+    out = _check_gather("gather_scores", table, indices, queries, scales)
     B, K = indices.shape
-    if indices.dtype != torch.int32:
-        raise ValueError("gather_scores: indices must be int32")
-    if queries.dtype != torch.float32 or queries.shape != (B, table.shape[1]):
-        raise ValueError("gather_scores: queries must be (B, d) float32")
-    out = torch.empty((B, K), dtype=torch.float32, device=table.device)
     err = _build.library().gather_scores_launch(
         table.data_ptr(), None if scales is None else scales.data_ptr(),
         indices.data_ptr(), queries.data_ptr(), out.data_ptr(),
@@ -79,3 +91,36 @@ def gather_scores(table: torch.Tensor, indices: torch.Tensor,
 
 
 gather_scores.launches = 0
+
+
+def gather_scores_masked(table: torch.Tensor, indices: torch.Tensor,
+                         queries: torch.Tensor, slot_categories: torch.Tensor,
+                         query_categories: torch.Tensor,
+                         scales: torch.Tensor | None = None) -> torch.Tensor:
+    """As ``gather_scores``, plus slot_categories (N,) int32 and
+    query_categories (B,) int32: -inf where the candidate's category is not
+    the query's (query category < 0 = wildcard). A CPU table takes the
+    plain version."""
+    if table.device.type == "cpu":
+        return gather_scores_masked_plain(table, indices, queries, slot_categories,
+                                          query_categories, scales)
+    out = _check_gather("gather_scores_masked", table, indices, queries, scales,
+                        slot_categories, query_categories)
+    B, K = indices.shape
+    if (slot_categories.dtype != torch.int32 or query_categories.dtype != torch.int32
+            or slot_categories.shape != (table.shape[0],)
+            or query_categories.shape != (B,)):
+        raise ValueError("gather_scores_masked: slot_categories (N,) and "
+                         "query_categories (B,) must be int32")
+    err = _build.library().gather_scores_masked_launch(
+        table.data_ptr(), None if scales is None else scales.data_ptr(),
+        indices.data_ptr(), queries.data_ptr(), slot_categories.data_ptr(),
+        query_categories.data_ptr(), out.data_ptr(),
+        table.shape[0], table.shape[1], B, K, int(scales is not None),
+        _build.stream(table.device))
+    _build.check(err, "gather_scores_masked")
+    gather_scores_masked.launches += 1
+    return out
+
+
+gather_scores_masked.launches = 0

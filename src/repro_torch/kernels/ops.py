@@ -1,17 +1,21 @@
-"""Public wrappers around the cache data-plane kernels.
+"""Public wrappers around the port's kernels.
 
-The counterpart of ``repro.kernels.ops`` for the four kernels on the
-lookup/insert path. Dispatch follows the tensors' device: a CPU tensor
-goes to the kernel module's plain PyTorch version, a CUDA tensor to the
-hand-written kernel, or the call raises. There is no fallback from one to
-the other. Kernels take any N, B and d (a multiple of 4), so unlike the
-TPU wrappers nothing is padded and no output needs slicing back.
+The counterpart of ``repro.kernels.ops`` for the cache data plane
+(lookup/insert) and the model's attention (prefill/decode). Dispatch
+follows the tensors' device: a CPU tensor goes to the kernel module's
+plain PyTorch version, a CUDA tensor to the hand-written kernel, or the
+call raises. There is no fallback from one to the other. Kernels take any
+N, B and d (a multiple of 4), and any Sq and Skv, so unlike the TPU
+wrappers nothing is padded and no output needs slicing back; the TPU
+wrappers' tile sizes and ``interpret`` switch have no counterpart.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flat_topk as _ft
 from repro_torch.kernels import frontier_hop as _fh
 from repro_torch.kernels import gather_scores as _gs
@@ -57,9 +61,8 @@ def hop_scores(table: torch.Tensor, indices: torch.Tensor, queries: torch.Tensor
     """Gather + dot over candidate ids: indices (B, K), -1 padded.
 
     With ``slot_categories`` (N,) + ``query_categories`` (B,) the category
-    mask applies too; pass both or neither (exactly one raises). The masked
-    variant has no CUDA kernel yet: it runs on CPU tensors only and raises
-    on the card. ``scales`` (N,) marks an int8 table.
+    mask applies too (``gather_scores_masked``); pass both or neither
+    (exactly one raises). ``scales`` (N,) marks an int8 table.
     """
     if (slot_categories is None) != (query_categories is None):
         raise ValueError("hop_scores: slot_categories and query_categories "
@@ -67,13 +70,9 @@ def hop_scores(table: torch.Tensor, indices: torch.Tensor, queries: torch.Tensor
     table, indices, queries = table.contiguous(), _i32(indices), _f32(queries)
     scales = None if scales is None else _f32(scales)
     if slot_categories is not None:
-        if table.device.type != "cpu":
-            raise NotImplementedError(
-                "hop_scores: the category-masked gather (gather_scores_masked) "
-                "has no CUDA kernel yet")
-        return _ref.gather_scores_masked_ref(table, indices, queries,
-                                             slot_categories, query_categories,
-                                             scales)
+        return _gs.gather_scores_masked(table, indices, queries,
+                                        _i32(slot_categories),
+                                        _i32(query_categories), scales)
     return _gs.gather_scores(table, indices, queries, scales)
 
 
@@ -120,3 +119,23 @@ def scatter_rows(table: torch.Tensor, rows: torch.Tensor,
     else:
         _su.scatter_rows(table, rows, vals)
     return table
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None, kv_offset: int = 0
+                    ) -> torch.Tensor:
+    """Prefill attention: q (B, Hq, Sq, dh), k/v (B, Hkv, Skv, dh) -> like
+    q. Any Sq and Skv: the kernel masks its edges (nothing is padded, so a
+    non-causal call never attends to a padding key)."""
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap, kv_offset=kv_offset)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: torch.Tensor, *, softcap: float | None = None
+                     ) -> torch.Tensor:
+    """Decode one token against the KV cache: q (B, Hq, dh), k/v
+    (B, Hkv, S, dh) (strided views welcome), kv_len (B,) masks the ragged
+    tail exactly; kv_len 0 gives 0."""
+    return _da.decode_attention(q, k, v, _i32(kv_len.to(q.device)), softcap=softcap)

@@ -1,7 +1,7 @@
-"""Plain PyTorch oracles for the cache data-plane kernels.
+"""Plain PyTorch oracles for the port's kernels.
 
 Each function is the direct mathematical definition (no tiling, no
-chunking), the counterpart of ``repro.kernels.ref``'s cache oracles. The
+chunking), the counterpart of ``repro.kernels.ref``'s oracles. The
 CPU path of every wrapper in ``repro_torch.kernels`` runs these, and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 
@@ -123,3 +123,79 @@ def scatter_rows_ref(table: torch.Tensor, rows: torch.Tensor,
     out = table.clone()
     out[rows.long()] = vals.to(table.dtype)
     return out
+
+
+NEG_INF = -1e30         # the attention kernels' running-max floor
+
+
+def _attend_plain(logits: torch.Tensor, mask: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+    """Masked softmax(logits) @ v in fp32, as the attention kernels compute
+    it: a masked score takes no probability mass, the row max ignores it,
+    and the output is ``acc / max(l, 1e-30)``, so a row with no visible key
+    is 0 (``attention_ref``'s fully-masked rows, the decode kernel's
+    ``kv_len = 0``)."""
+    m = logits.masked_fill(~mask, NEG_INF).amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(logits - m), torch.zeros_like(logits))
+    l = p.sum(-1, keepdim=True)
+    return (p @ v) / l.clamp_min(1e-30)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int | None = None,
+                  softcap: float | None = None, kv_offset: int = 0,
+                  scale: float | None = None) -> torch.Tensor:
+    """Full-materialization GQA attention with masks and softcap.
+
+    q (B, Hq, Sq, dh); k/v (B, Hkv, Skv, dh); Hq % Hkv == 0. Query i sits at
+    absolute position i + kv_offset and sees key j iff j <= i + kv_offset
+    (causal) and j > i + kv_offset - window (window). Scores, softmax and
+    P·V are fp32 (the probabilities are not rounded); the output takes q's
+    dtype.
+    """
+    B, Hq, Sq, dh = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = scale if scale is not None else dh ** -0.5
+    qf = q.to(torch.float32).reshape(B, Hkv, g, Sq, dh)
+    logits = qf @ k.to(torch.float32)[:, :, None].transpose(-1, -2) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    qpos = torch.arange(Sq, device=q.device)[:, None] + kv_offset
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    out = _attend_plain(logits, mask, v.to(torch.float32)[:, :, None])
+    return out.reshape(B, Hq, Sq, dh).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         kv_len: torch.Tensor | int | None = None,
+                         softcap: float | None = None,
+                         scale: float | None = None) -> torch.Tensor:
+    """One-token GQA decode: q (B, Hq, dh) against k/v (B, Hkv, S, dh).
+
+    ``kv_len`` (scalar or (B,)) hides positions >= kv_len; a sequence with
+    kv_len 0 attends to nothing and gives 0. k/v may be strided views (the
+    model's cache is (B, S, Hkv, dh) seen through a transpose).
+    """
+    B, Hq, dh = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = scale if scale is not None else dh ** -0.5
+    qf = q.to(torch.float32).reshape(B, Hkv, g, 1, dh)
+    logits = qf @ k.to(torch.float32)[:, :, None].transpose(-1, -2) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    kpos = torch.arange(S, device=q.device)
+    if kv_len is None:
+        mask = torch.ones((B, S), dtype=torch.bool, device=q.device)
+    else:
+        lens = torch.as_tensor(kv_len, device=q.device).reshape(-1)
+        mask = kpos[None, :] < lens.expand(B)[:, None]
+    out = _attend_plain(logits, mask[:, None, None, None, :],
+                        v.to(torch.float32)[:, :, None])
+    return out.reshape(B, Hq, dh).to(q.dtype)

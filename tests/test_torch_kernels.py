@@ -196,8 +196,8 @@ def test_gather_scores_parity(rng, N_, d, B, K, quant):
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("N_,d,B,K", [(256, 128, 4, 8), (512, 384, 2, 16)])
 def test_gather_scores_masked_parity(rng, N_, d, B, K, quant):
-    """The masked variant (no CUDA kernel yet) on the CPU: padding and
-    cross-category candidates are -inf, query category -1 is a wildcard."""
+    """The masked variant on the CPU: padding and cross-category candidates
+    are -inf, query category -1 is a wildcard."""
     table, scales = _table(rng, N_, d, quant)
     idx = rng.integers(-1, N_, size=(B, K)).astype(np.int32)
     q = rng.standard_normal((B, d)).astype(np.float32)
@@ -212,6 +212,27 @@ def test_gather_scores_masked_parity(rng, N_, d, B, K, quant):
                                        interpret=True)
     got = ops.hop_scores(T(table), T(idx), T(q), T(cats), T(qc), tsc)
     _close(got, kern, atol=1e-4)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_gather_scores_masked_wrapper_is_the_plain_version_on_cpu(rng, quant):
+    """On a CPU table the masked wrapper is its plain version bit for bit,
+    and where the category test passes its scores are gather_scores's bits
+    (the CUDA kernel shares the dot, which chip_smoke.py checks on the
+    card); everything else is -inf."""
+    table, scales = _table(rng, 300, 64, quant)
+    tsc = None if scales is None else T(scales)
+    idx = T(rng.integers(-1, 300, size=(4, 12)).astype(np.int32))
+    q = T(rng.standard_normal((4, 64)).astype(np.float32))
+    cats = T(rng.integers(0, 3, 300).astype(np.int32))
+    qc = torch.tensor([-1, 0, 1, 2], dtype=torch.int32)
+    got = tgs.gather_scores_masked(T(table), idx, q, cats, qc, tsc)
+    assert torch.equal(got, tgs.gather_scores_masked_plain(T(table), idx, q, cats, qc, tsc))
+    base = tgs.gather_scores(T(table), idx, q, tsc)
+    ok = (idx >= 0) & ((qc[:, None] < 0) | (cats[idx.clamp(min=0).long()] == qc[:, None]))
+    assert torch.equal(got[ok], base[ok])
+    assert bool(torch.isneginf(got[~ok]).all())
+    assert torch.equal(got[0], base[0])                 # wildcard query: no mask
 
 
 # ------------------------------------------------------------ frontier_hop
@@ -340,6 +361,9 @@ def test_wrappers_raise_off_cpu_instead_of_falling_back():
     with pytest.raises(ValueError):
         ops.scatter_rows(table, torch.zeros(2, dtype=torch.int32),
                          torch.empty((2, 8), device=meta))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         ops.hop_scores(table, idx, q, torch.empty(16, dtype=torch.int32, device=meta),
                        i32)
+    with pytest.raises(ValueError):
+        tgs.gather_scores_masked(table, idx, q,
+                                 torch.empty(16, dtype=torch.int32, device=meta), i32)

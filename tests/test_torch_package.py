@@ -41,9 +41,25 @@ def test_no_jax_or_reference_import(path):
         assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
 
 
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_library_attention_in_the_port(path):
+    """The port's attention is its own kernels: no file calls PyTorch's
+    fused attention (chip_smoke.py only times it, as its yardstick)."""
+    calls = [node for node in ast.walk(ast.parse(path.read_text()))
+             if isinstance(node, ast.Call) and "scaled_dot_product_attention"
+             in ast.unparse(node.func)]
+    if path.name == "chip_smoke.py":
+        assert [ast.unparse(c.func) for c in calls] == ["F.scaled_dot_product_attention"]
+    else:
+        assert not calls and "scaled_dot_product_attention" not in path.read_text()
+
+
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.obs, "
-            "repro_torch.kernels.ops; "
+            "repro_torch.kernels.ops, repro_torch.models, repro_torch.configs, "
+            "repro_torch.serving, repro_torch.launch.serve, "
+            "repro_torch.distributed.fault, repro_torch.models.convert; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -179,3 +195,47 @@ def test_embedder_and_workload_match(reference):
     assert [(x.category, x.intent_id, x.timestamp) for x in a] == \
         [(y.category, y.intent_id, y.timestamp) for y in b]
     assert all(np.array_equal(x.embedding, y.embedding) for x, y in zip(a, b))
+
+
+def test_export_surfaces_match(reference):
+    """The copied export module renders the same Prometheus text and
+    telemetry report from the same spans, events and snapshot."""
+    from repro.core.clock import SimClock as JClock
+    from repro.obs import TraceRecorder as JRec
+    from repro.obs import prometheus_text as jprom
+    from repro.obs import telemetry_report as jreport
+    from repro_torch.core.clock import SimClock as TClock
+    from repro_torch.obs import TraceRecorder as TRec
+    from repro_torch.obs import prometheus_text, telemetry_report
+
+    def record(rec_cls, clock):
+        rec = rec_cls(clock)
+        for i in range(5):
+            with rec.span("engine_step", category="code_generation"):
+                clock.advance(0.001 * (i + 1))
+                with rec.span("lookup", category="code_generation", shard=0):
+                    clock.advance(0.0005)
+            rec.event("hit" if i % 2 else "miss", slot=i)
+        return rec
+
+    snap = {"code_generation": {"lookups": 5, "hits": 2, "hit_rate": 0.4},
+            "_overall": {"lookups": 5, "hits": 2, "hit_rate": 0.4,
+                         "availability": 1.0, "degraded_seconds": 0.0}}
+    jr, tr = record(JRec, JClock()), record(TRec, TClock())
+    assert prometheus_text(snapshot=snap, rec=tr) == jprom(snapshot=snap, rec=jr)
+    assert telemetry_report(tr, snapshot=snap) == jreport(jr, snapshot=snap)
+
+
+def test_step_watchdog_matches(reference):
+    from repro.distributed.fault import StepWatchdog as JWatchdog
+    from repro_torch.distributed.fault import StepWatchdog as TWatchdog
+    times = [0.01, 0.011, 0.009, 0.01, 0.012, 0.5, 0.01, 0.04, 0.011, 0.9]
+    seen = {}
+    for cls in (JWatchdog, TWatchdog):
+        wd = cls(timeout_factor=3.0, min_history=5)
+        flagged = []
+        wd.on_straggler = lambda dt, med: flagged.append((dt, med))
+        for dt in times:
+            wd.observe_for_test(dt)
+        seen[cls] = (wd.straggler_events, flagged)
+    assert seen[JWatchdog] == seen[TWatchdog] and seen[TWatchdog][0] == 3
