@@ -12,9 +12,14 @@ Phases (any failure exits non-zero and prints no result):
 2. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes: the cache kernels in fp32 and int8,
              the attention kernels in fp32 and bf16 at the serve shape and
-             at a long one (prefill 4,096; decode 32,768), with times (CUDA
-             events around CUDA-graph replays), the plain version's time,
-             the bound and the library call's time where one exists;
+             at a long one (prefill 4,096; decode 32,768, and decode 32,768
+             with gemma2's window of 4,096), mamba_scan with fp32 and bf16
+             x at falcon-mamba-7b's serve prefill (8 × 64 × 8192, N 16),
+             its decode step (L 1, the state read from h0 and written back
+             over it in place, held bit for bit against a separate h_out)
+             and a long scan (1 × 4,096), with times (CUDA events around
+             CUDA-graph replays), the plain version's time, the bound and
+             the library call's time where one exists;
 3. index   — ``HNSWIndex.bulk_build`` of 100,000 Table-1 vectors at
              capacity 131,072: searches of 8, a delta flush, searches again,
              the kernel path against the plain path on the card;
@@ -28,8 +33,13 @@ Phases (any failure exits non-zero and prints no result):
              the cache (hnsw, fp32, device search) in front of
              llama3.2-3b at full width and depth (seeded random bf16
              weights), batch 8, prompt 64, 16 new tokens; the attention
-             kernels must have launched. Then the model at full width and
-             2 layers: decode against prefill, and card against CPU.
+             kernels must have launched. Then the same run in front of
+             falcon-mamba-7b at full width and depth (64 Mamba layers,
+             d_inner 8192): mamba_scan must have launched 64 times per
+             prefill and decode step, and the served, hit and model-token
+             counters must equal llama's (hits depend only on the text).
+             Then each model at full width and 2 layers: decode against
+             prefill, and card against CPU.
 
 The last lines are a ``{"kernels": [...]}`` object, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -37,6 +47,7 @@ power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -51,6 +62,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32, outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 SCORE_ATOL = 1e-5              # fp32 scores: kernel and plain sum in other orders
+SCAN_ATOL = 1e-4               # fp32 scan (values O(1)): N-sums in another order,
+                               # exp within 2 ulp, carried over up to 4,096 steps
 TAU_BAND = 1e-5                # card/CPU decisions may differ this close to τ
 D, HOP_N, FLAT_N, B, F, M = 384, 131_072, 1_048_576, 8, 32, 32
 
@@ -365,19 +378,20 @@ def check_kernels(torch, dev) -> dict:
 HQ, HKV, DH = 24, 8, 128
 
 
-def attn_close(torch, got, want) -> float:
-    """Largest |got - want|. fp32 must agree within SCORE_ATOL (summation
+def attn_close(torch, got, want, atol: float = SCORE_ATOL, what: str = "attention"
+               ) -> float:
+    """Largest |got - want|. fp32 must agree within ``atol`` (summation
     order); a bf16 output rounds the same fp32 value, so the two may differ
-    by one bf16 step: 2^-7 of the larger magnitude (plus SCORE_ATOL)."""
+    by one bf16 step: 2^-7 of the larger magnitude (plus ``atol``)."""
     g, w = got.float(), want.float()
     err = (g - w).abs()
     if got.dtype == torch.bfloat16:
-        tol = torch.maximum(g.abs(), w.abs()) * 2.0 ** -7 + SCORE_ATOL
+        tol = torch.maximum(g.abs(), w.abs()) * 2.0 ** -7 + atol
     else:
-        tol = torch.full_like(err, SCORE_ATOL)
-    require(bool(torch.isfinite(g).all()), "attention: non-finite output")
+        tol = torch.full_like(err, atol)
+    require(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
     require(bool((err <= tol).all()),
-            f"attention {got.dtype}: err {float(err.max())} past its tolerance")
+            f"{what} {got.dtype}: err {float(err.max())} past its tolerance")
     return float(err.max())
 
 
@@ -456,9 +470,10 @@ def check_attention(torch, dev) -> dict:
                 err = max(err, attn_close(torch, got, da.decode_attention_plain(
                     q, k, v, kv_len=lens)))
                 require(not bool(got[lens == 0].any()), "decode: kv_len 0 must give 0")
-                # softcap: held, not timed
-                attn_close(torch, da.decode_attention(q, k, v, lens, softcap=30.0),
-                           da.decode_attention_plain(q, k, v, kv_len=lens, softcap=30.0))
+                # softcap, and softcap with a window: held, not timed
+                for kw in (dict(softcap=30.0), dict(softcap=30.0, window=48)):
+                    attn_close(torch, da.decode_attention(q, k, v, lens, **kw),
+                               da.decode_attention_plain(q, k, v, kv_len=lens, **kw))
             esz = sets[0][0].element_size()
             live = statistics.mean(int(s[3].sum()) for s in sets)
             nbytes = esz * (2 * live * HKV * DH + 2 * B * HQ * DH) + 4 * B
@@ -477,6 +492,123 @@ def check_attention(torch, dev) -> dict:
                 bytes=nbytes, flops=flops)
             log(f"kernels: decode_attention {label} B={B} S={S} {dtype} "
                 f"{out[('decode_attention', label, str(dtype)[6:])]}")
+            if label == "decode_32k":
+                out[("decode_attention", f"decode_32k_w{WINDOW}", str(dtype)[6:])] = \
+                    windowed_decode(torch, da, sets, dtype)
+    torch.cuda.empty_cache()
+    return out
+
+
+WINDOW = 4096                  # gemma2's local layers
+
+
+def windowed_decode(torch, da, sets, dtype) -> dict:
+    """decode_attention with a window of WINDOW on the decode_32k inputs:
+    held against the plain version and timed; the bound counts only the
+    rows inside each sequence's window."""
+    err = 0.0
+    for q, k, v, lens in sets:
+        got = da.decode_attention(q, k, v, lens, window=WINDOW)
+        err = max(err, attn_close(torch, got, da.decode_attention_plain(
+            q, k, v, kv_len=lens, window=WINDOW)))
+    B = sets[0][0].shape[0]
+    esz = sets[0][0].element_size()
+    live = statistics.mean(int(s[3].clamp(max=WINDOW).sum()) for s in sets)
+    nbytes = esz * (2 * live * HKV * DH + 2 * B * HQ * DH) + 4 * B
+    b_w = bound(nbytes, 4 * HQ * DH * live, BF16_OPS_PER_S if dtype == torch.bfloat16
+                else FP32_OPS_PER_S)
+    q, k, v, lens = sets[0]
+    S = k.shape[2]
+    pos = torch.arange(S, device=q.device)[None, :]
+    mask = ((pos < lens[:, None]) & (pos >= lens[:, None] - WINDOW))[:, None, None, :]
+    row = dict(
+        max_abs_err=err,
+        ms=graph_ms(torch, [lambda s=s: da.decode_attention(*s, window=WINDOW)
+                            for s in sets]),
+        plain_ms=graph_ms(torch, [lambda s=s: da.decode_attention_plain(
+            *s[:3], kv_len=s[3], window=WINDOW) for s in sets]),
+        bound_ms=b_w[0], bound_by=b_w[1],
+        library_ms=sdpa_ms(torch, q[:, :, None], k, v, causal=False, mask=mask),
+        bytes=nbytes)
+    log(f"kernels: decode_attention decode_32k window {WINDOW} {dtype} {row}")
+    return row
+
+
+# ---------------------------------------------------------------- mamba_scan
+# falcon-mamba-7b: d_inner 8192, d_state 16; serve batch 8, prompt 64.
+DI, NS = 8192, 16
+
+
+def scan_inputs(torch, gen, dev, Bt, L, dtype):
+    """Inputs at the model's scales: x ~ N(0, 0.25), dt log-uniform in
+    [1e-3, 0.1] (its softplus(dt_bias) init), A = -exp(U(log 0.5, log 16)),
+    B, C ~ N(0, 1), D ~ N(0, 1), h0 ~ N(0, 0.01)."""
+    import math
+
+    def u(*shape, lo, hi):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    x = (torch.randn((Bt, L, DI), generator=gen, device=dev) * 0.5).to(dtype)
+    dt = torch.exp(u(Bt, L, DI, lo=math.log(1e-3), hi=math.log(0.1)))
+    A = -torch.exp(u(DI, NS, lo=math.log(0.5), hi=math.log(16.0)))
+    B = torch.randn((Bt, L, NS), generator=gen, device=dev)
+    C = torch.randn((Bt, L, NS), generator=gen, device=dev)
+    D = torch.randn((DI,), generator=gen, device=dev)
+    h0 = torch.randn((Bt, DI, NS), generator=gen, device=dev) * 0.1
+    return x, dt, A, B, C, D, h0
+
+
+def check_mamba(torch, dev) -> dict:
+    """mamba_scan against its plain version at the serve prefill (no h0),
+    the serve decode step (h0 aliased with h_out) and a long scan, with
+    fp32 and bf16 x; a prefill with h0 and the aliased decode are also held
+    bit for bit against the same call with a separate h_out."""
+    from repro_torch.kernels import mamba_scan as ms
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2028)
+    out = {}
+    for label, Bt, L, with_h0 in (("serve_prefill", 8, 64, False),
+                                  ("serve_decode", 8, 1, True), ("long", 1, 4096, False)):
+        for dtype in (torch.float32, torch.bfloat16):
+            sets = [scan_inputs(torch, gen, dev, Bt, L, dtype)
+                    for _ in range(2 if L < 1024 else 1)]
+            err = 0.0
+            for x, dt, A, B, C, D, h0 in sets:
+                starts = (h0,) if with_h0 else (None, h0) if L < 1024 else (None,)
+                for start in starts:
+                    y_k, h_k = ms.mamba_scan(x, dt, A, B, C, D, start)
+                    y_p, h_p = ms.mamba_scan_plain(x, dt, A, B, C, D, start)
+                    torch.cuda.synchronize()
+                    err = max(err, attn_close(torch, y_k, y_p, SCAN_ATOL, "mamba_scan y"),
+                              attn_close(torch, h_k, h_p, SCAN_ATOL, "mamba_scan h"))
+                    if start is None:
+                        continue
+                    state = start.clone()                 # h_out over h0, in place
+                    y_a, h_a = ms.mamba_scan(x, dt, A, B, C, D, state, h_out=state)
+                    torch.cuda.synchronize()
+                    require(h_a.data_ptr() == state.data_ptr()
+                            and torch.equal(y_a, y_k) and torch.equal(state, h_k),
+                            f"mamba_scan {label}: aliased h0/h_out differs from a "
+                            f"separate h_out")
+            esz = sets[0][0].element_size()
+            n = Bt * L * DI
+            nbytes = (n * (2 * esz + 4) + 2 * Bt * L * NS * 4 + DI * (NS + 1) * 4
+                      + Bt * DI * NS * 4 * (2 if with_h0 else 1))
+            b_s = bound(nbytes, 7 * n * NS)
+            if with_h0:
+                fns = [lambda s=s: ms.mamba_scan(*s, h_out=s[6]) for s in sets]
+                plain = [lambda s=s: ms.mamba_scan_plain(*s) for s in sets]
+            else:
+                fns = [lambda s=s: ms.mamba_scan(*s[:6]) for s in sets]
+                plain = [lambda s=s: ms.mamba_scan_plain(*s[:6]) for s in sets]
+            key = ("mamba_scan", label, str(dtype)[6:])
+            out[key] = dict(max_abs_err=err, ms=graph_ms(torch, fns),
+                            plain_ms=graph_ms(torch, plain, replays=5 if L > 1024 else 15),
+                            bound_ms=b_s[0], bound_by=b_s[1], library_ms=None,
+                            bytes=nbytes, ops=7 * n * NS)
+            log(f"kernels: mamba_scan {label} Bt={Bt} L={L} Dm={DI} N={NS} {dtype} "
+                f"{out[key]}")
+            del sets
     torch.cuda.empty_cache()
     return out
 
@@ -710,12 +842,12 @@ def check_card_vs_cpu(steps: int) -> None:
 
 
 # ---------------------------------------------------------------- phase 6
-SERVE_ARCH = "llama3.2-3b"
+SERVE_ARCHS = ("llama3.2-3b", "falcon-mamba-7b")
 # bf16 logits (magnitude ~4): card and CPU, or decode and prefill, round
 # activations at other places (cuBLAS and the CPU sum in other orders, the
 # decode and flash kernels differ in summation order), and one bf16 step of
 # a hidden state moves a logit by ~1e-2; 0.1 bounds two layers of that
-# (0.031 and 0.038 measured on an H100).
+# (0.031 and 0.038 measured on an H100 for llama3.2-3b).
 LOGIT_TOL = 0.1
 
 
@@ -745,6 +877,7 @@ class ModelTimer:
     def __init__(self, torch, model_cls):
         self.torch, self.cls = torch, model_cls
         self.events = {"prefill": [], "decode_step": []}
+        self.calls = {"prefill": 0, "decode_step": 0}
         self.profiles = {}
         self.params = None
         self._orig = {}
@@ -765,6 +898,7 @@ class ModelTimer:
 
         def call(model, params, *args, **kw):
             self.params = params
+            self.calls[name] += 1
             if len(self.events[name]) == 3 and name not in self.profiles:
                 torch.cuda.synchronize()
                 with profile(activities=[ProfilerActivity.CPU,
@@ -788,17 +922,19 @@ class ModelTimer:
         return [s.elapsed_time(e) for s, e, _ in self.events[name]]
 
 
-def run_serve(torch, counters, n_requests: int) -> dict:
-    """The port's run_serving on the card: llama3.2-3b at full width and
+def run_serve(torch, counters, arch: str, n_requests: int) -> dict:
+    """The port's run_serving on the card: ``arch`` at full width and
     depth, seeded random weights drawn on the device, SemanticCache (hnsw,
     fp32, device search) with Table-1 traffic, batch 8, prompt 64, 16 new
-    tokens."""
+    tokens. Every kernel of the model's path must have launched: the
+    attention kernels for a dense model, mamba_scan once per layer of
+    every prefill and decode step for an ssm one."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import run_serving
     from repro_torch.models.model import Model
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
@@ -808,18 +944,25 @@ def run_serve(torch, counters, n_requests: int) -> dict:
         out = run_serving(cfg, n_requests=n_requests, max_batch=8, prompt_len=64,
                           max_new_tokens=16, seed=0, index_kind="hnsw",
                           use_device=True, emb_dtype="float32", telemetry=True,
-                          device="cuda", log=lambda m: log(f"serve: {m}"))
+                          device="cuda", log=lambda m: log(f"serve {arch}: {m}"))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     counts = {k: fn.launches for k, fn in counters.items()}
-    for k in ("flash_attention", "decode_attention", "frontier_hop", "gather_scores"):
-        require(counts[k] > 0, f"serve: {k} never launched")
+    path = (("flash_attention", "decode_attention") if cfg.family == "dense"
+            else ("mamba_scan",))
+    for k in path + ("frontier_hop", "gather_scores"):
+        require(counts[k] > 0, f"serve {arch}: {k} never launched")
+    if cfg.family == "ssm":
+        calls = timer.calls["prefill"] + timer.calls["decode_step"]
+        require(counts["mamba_scan"] == cfg.n_layers * calls,
+                f"serve {arch}: mamba_scan launched {counts['mamba_scan']} times, "
+                f"not {cfg.n_layers} per prefill and decode step ({calls})")
     peak = torch.cuda.max_memory_allocated()
     snap = out["per_category"]
     misses = round(out["served"] * (1 - out["hit_rate"]))
-    require(out["served"] == n_requests, "serve: not every request was served")
+    require(out["served"] == n_requests, f"serve {arch}: not every request was served")
     require(out["model_tokens"] == 16 * misses and misses > 0,
-            "serve: every miss must generate 16 model tokens")
+            f"serve {arch}: every miss must generate 16 model tokens")
     pre, dec = timer.ms("prefill"), timer.ms("decode_step")
     batches = [b for *_, b in timer.events["decode_step"]]
     dec_s = sum(dec) / 1e3
@@ -827,7 +970,7 @@ def run_serve(torch, counters, n_requests: int) -> dict:
                              new_tokens=16)
     numbers = dict(
         served=out["served"], hit_rate=out["hit_rate"], model_tokens=out["model_tokens"],
-        model_batches=len(pre) + ("prefill" in timer.profiles),
+        model_batches=timer.calls["prefill"], decode_steps=timer.calls["decode_step"],
         prefill_ms_p50=float(np.percentile(pre, 50)),
         prefill_ms_p99=float(np.percentile(pre, 99)),
         decode_ms_p50=float(np.percentile(dec, 50)),
@@ -837,21 +980,22 @@ def run_serve(torch, counters, n_requests: int) -> dict:
         peak_gib=peak / 2**30, launches=counts, **step)
     rates = {c: round(row["hit_rate"], 4) for c, row in sorted(snap.items())
              if "hit_rate" in row}
-    log(f"serve: {out['served']} served, {misses} served by the model, "
+    log(f"serve {arch}: {out['served']} served, {misses} served by the model, "
         f"{out['model_tokens']} model tokens; hit rates {rates}")
-    log(f"serve: prefill ms per batch p50 {numbers['prefill_ms_p50']:.3f} p99 "
-        f"{numbers['prefill_ms_p99']:.3f} ({len(pre)} timed); decode ms per token "
-        f"p50 {numbers['decode_ms_p50']:.3f} p99 {numbers['decode_ms_p99']:.3f} "
-        f"({len(dec)} timed, mean batch {statistics.mean(batches):.2f})")
-    log(f"serve: {numbers['decode_tokens_per_s']:.1f} decode tokens/s, "
+    log(f"serve {arch}: prefill ms per batch p50 {numbers['prefill_ms_p50']:.3f} p99 "
+        f"{numbers['prefill_ms_p99']:.3f} ({len(pre)} timed of {timer.calls['prefill']}); "
+        f"decode ms per token p50 {numbers['decode_ms_p50']:.3f} p99 "
+        f"{numbers['decode_ms_p99']:.3f} ({len(dec)} timed of "
+        f"{timer.calls['decode_step']}, mean batch {statistics.mean(batches):.2f})")
+    log(f"serve {arch}: {numbers['decode_tokens_per_s']:.1f} decode tokens/s, "
         f"{numbers['tokens_per_s']:.1f} model tokens/s over {wall:.2f} s wall; "
         f"peak device memory {numbers['peak_gib']:.2f} GiB; launches {counts}")
-    log(f"serve: decode step bound {step['decode_bound_ms']:.4f} ms "
-        f"({step['decode_bytes'] / 1e9:.4f} GB at the mean batch: bf16 layers, bf16 "
-        f"head, live KV); the fp32 head copy the port reads instead adds "
-        f"{step['fp32_head_extra_ms']:.4f} ms")
+    log(f"serve {arch}: decode step bound {step['decode_bound_ms']:.4f} ms, "
+        f"{step['decode_bound_by']} ({step['decode_bytes'] / 1e9:.4f} GB at the mean "
+        f"batch: bf16 layers, bf16 head, {step['decode_state']}); the fp32 head copy "
+        f"the port reads instead adds {step['fp32_head_extra_ms']:.4f} ms")
     for name, text in timer.profiles.items():
-        log(f"serve: profile of one {name}: {text}")
+        log(f"serve {arch}: profile of one {name}: {text}")
     return numbers
 
 
@@ -867,23 +1011,33 @@ def tree_sum(tree, of) -> int:
 def decode_step_bound(params, cfg, batch: float, *, prompt_len: int,
                       new_tokens: int) -> dict:
     """The least time of one decode step at ``batch`` sequences: the bytes
-    it must read (every layer weight, the bf16 head, the final norm, the
-    batch's embedding rows and its live K/V rows, at the mean live length
-    over the steps of a generate) at the HBM rate, or its products at the
-    bf16 tensor-core rate, whichever is larger. The port's fp32 head copy
-    is a cost of its design, reported apart."""
+    it must move (every layer weight, the bf16 head, the final norm, the
+    batch's embedding rows, and each layer's cached state: the live K/V
+    rows of an attention layer, at the mean live length over the steps of
+    a generate, read; the fp32 state and conv tail of a Mamba layer, read
+    and written) at the HBM rate, or its products at the bf16 tensor-core
+    rate, whichever is larger. The port's fp32 head copy is a cost of its
+    design, reported apart."""
     head = params["head"]
     esz = head.element_size()
     read = [params["layers"], params["final_norm"], head]
+    kinds = cfg.layer_kinds()
     # decode step i of a generate attends prompt_len + 1 + i positions
     live = prompt_len + 1 + (new_tokens - 2) / 2
-    kv = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * esz * live * batch
-    nbytes = tree_sum(read, lambda t: t.nbytes) + kv + batch * cfg.d_model * esz
+    kv = 2 * kinds.count("attn") * cfg.n_kv_heads * cfg.head_dim * esz * live * batch
+    di = cfg.ssm_d_inner
+    ssm = (2 * kinds.count("mamba") * batch
+           * (di * cfg.ssm_d_state * 4 + (cfg.ssm_d_conv - 1) * di * esz))
+    state = " and ".join(
+        text for n, text in ((kinds.count("attn"), "live KV"),
+                             (kinds.count("mamba"), "the Mamba state read and written"))
+        if n)
+    nbytes = tree_sum(read, lambda t: t.nbytes) + kv + ssm + batch * cfg.d_model * esz
     flops = 2 * batch * tree_sum(read, lambda t: t.numel())
     t, by = bound(nbytes, flops, BF16_OPS_PER_S)
     extra = head.numel() * (4 - esz)
     return dict(decode_bound_ms=t, decode_bound_by=by, decode_bytes=nbytes,
-                fp32_head_extra_ms=extra / HBM_BYTES_PER_S * 1e3)
+                decode_state=state, fp32_head_extra_ms=extra / HBM_BYTES_PER_S * 1e3)
 
 
 def tree_to(tree, device):
@@ -895,15 +1049,15 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
-def check_model(torch) -> dict:
-    """llama3.2-3b at full width and 2 layers, one seeded set of weights on
+def check_model(torch, arch: str) -> dict:
+    """``arch`` at full width and 2 layers, one seeded set of weights on
     the card and a copy on the CPU: decode of token S-1 against the prefill
     of S tokens on the card, and card against CPU logits and greedy tokens."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
-    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=2)
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
     card = Model(cfg, device="cuda")
     params = card.init_params(0)
     host = tree_to(params, "cpu")
@@ -915,25 +1069,25 @@ def check_model(torch) -> dict:
     lp, cache, kvl = card.prefill(params, {"tokens": toks[:, :S - 1]}, S + 8)
     ld, _, _ = card.decode_step(params, cache, toks[:, S - 1].cuda(), kvl)
     err_dp = float((lf[:, :V] - ld[:, :V]).abs().max())
-    require(err_dp <= LOGIT_TOL, f"model: decode vs prefill err {err_dp}")
+    require(err_dp <= LOGIT_TOL, f"model {arch}: decode vs prefill err {err_dp}")
     lc, cc, kc = card.prefill(params, {"tokens": toks}, S + 8)
     lh, ch, kh = cpu.prefill(host, {"tokens": toks}, S + 8)
     errs, agree, clear_n = [], 0, 0
     for step in range(5):
         a, b = lc[:, :V].cpu(), lh[:, :V]
-        require(bool(torch.isfinite(a).all()), "model: non-finite logits on the card")
+        require(bool(torch.isfinite(a).all()), f"model {arch}: non-finite logits")
         errs.append(float((a - b).abs().max()))
         top2 = b.topk(2, dim=1).values
         clear = (top2[:, 0] - top2[:, 1]) > 2 * LOGIT_TOL
         require(torch.equal(a.argmax(1)[clear], b.argmax(1)[clear]),
-                f"model: greedy tokens differ at step {step}")
+                f"model {arch}: greedy tokens differ at step {step}")
         agree += int((a.argmax(1) == b.argmax(1)).sum())
         clear_n += int(clear.sum())
         tok = b.argmax(1).to(torch.int32)
         lc, cc, kc = card.decode_step(params, cc, tok.cuda(), kc)
         lh, ch, kh = cpu.decode_step(host, ch, tok, kh)
-    require(max(errs) <= LOGIT_TOL, f"model: card vs CPU logits err {max(errs)}")
-    log(f"model: 2-layer full width, decode vs prefill max |dlogit| {err_dp:.5f}; card vs "
+    require(max(errs) <= LOGIT_TOL, f"model {arch}: card vs CPU logits err {max(errs)}")
+    log(f"model {arch}: 2-layer full width, decode vs prefill max |dlogit| {err_dp:.5f}; card vs "
         f"CPU max |dlogit| {max(errs):.5f} over prefill + 4 decode steps (tolerance "
         f"{LOGIT_TOL}); greedy tokens equal {agree}/{5 * B} ({clear_n} beyond the margin)")
     del card, params, cache, cc
@@ -957,11 +1111,20 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:117"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:103"),
+    "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
+                   "src/repro/kernels/mamba_scan.py:81"),
 }
 # The row's own numbers come from the main path's shape and dtype; the
-# others ride along under "variants".
+# others ride along under "variants". No single PyTorch call computes a
+# selective scan, so mamba_scan's library_ms is null.
 MAIN_KEY = {"flash_attention": ("serve", "bfloat16"),
-            "decode_attention": ("serve", "bfloat16")}
+            "decode_attention": ("serve", "bfloat16"),
+            "mamba_scan": ("serve_prefill", "bfloat16")}
+# The path whose run gives each kernel's launch count: the serve runs for
+# the model's kernels, the main path for the cache's (gather_scores_masked
+# is on neither and counts 0).
+SERVE_KERNELS = {"flash_attention": "llama3.2-3b", "decode_attention": "llama3.2-3b",
+                 "mamba_scan": "falcon-mamba-7b"}
 
 
 PHASES = ("build", "kernels", "index", "main", "parity", "serve")
@@ -993,11 +1156,13 @@ def main(argv: list[str]) -> int:
     from repro_torch.kernels.flat_topk import flat_topk
     from repro_torch.kernels.frontier_hop import frontier_hop
     from repro_torch.kernels.gather_scores import gather_scores, gather_scores_masked
+    from repro_torch.kernels.mamba_scan import mamba_scan
     from repro_torch.kernels.scatter_update import scatter_rows
     counters = {"frontier_hop": frontier_hop, "gather_scores": gather_scores,
                 "flat_topk": flat_topk, "scatter_rows": scatter_rows,
                 "gather_scores_masked": gather_scores_masked,
-                "flash_attention": flash_attention, "decode_attention": decode_attention}
+                "flash_attention": flash_attention, "decode_attention": decode_attention,
+                "mamba_scan": mamba_scan}
     dev = torch.device("cuda")
     log(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
@@ -1014,6 +1179,7 @@ def main(argv: list[str]) -> int:
             t0 = time.perf_counter()
             numbers = check_kernels(torch, dev)
             numbers.update(check_attention(torch, dev))
+            numbers.update(check_mamba(torch, dev))
             log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
         if "index" in phases:
             t0 = time.perf_counter()
@@ -1029,8 +1195,18 @@ def main(argv: list[str]) -> int:
             log(f"phase parity: {time.perf_counter() - t0:.1f} s")
         if "serve" in phases:
             t0 = time.perf_counter()
-            served = run_serve(torch, counters, n_requests=256)
-            check_model(torch)
+            served = {}
+            for arch in SERVE_ARCHS:             # one model on the card at a time
+                served[arch] = run_serve(torch, counters, arch, n_requests=256)
+                gc.collect()
+                torch.cuda.empty_cache()
+            same = ("served", "hit_rate", "model_tokens")
+            require(all(served[a][k] == served[SERVE_ARCHS[0]][k]
+                        for a in SERVE_ARCHS for k in same),
+                    f"serve: counters differ between {SERVE_ARCHS}: "
+                    f"{ {a: [served[a][k] for k in same] for a in SERVE_ARCHS} }")
+            for arch in SERVE_ARCHS:
+                check_model(torch, arch)
             log(f"phase serve: {time.perf_counter() - t0:.1f} s")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
@@ -1040,10 +1216,7 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: partial run (--phases); no result", file=sys.stderr)
         return 4
 
-    # launches: the attention kernels from the serve path, the cache
-    # kernels from the main path (gather_scores_masked is on neither)
-    launches.update({k: served["launches"][k]
-                     for k in ("flash_attention", "decode_attention")})
+    launches.update({k: served[arch]["launches"][k] for k, arch in SERVE_KERNELS.items()})
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = []
     for name, (source, replaces) in KERNELS.items():

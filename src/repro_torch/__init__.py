@@ -1,6 +1,6 @@
 """repro_torch: the category-aware semantic cache and the LLM behind it in
 PyTorch, with hand-written Hopper (sm_90a) CUDA kernels for the cache's
-device data plane and the model's attention.
+device data plane, the model's attention and its selective scan.
 
 A port of ``repro`` (the JAX package, which stays the reference). It
 imports ``torch`` and ``numpy`` and nothing of ``jax`` or ``repro``:
@@ -12,13 +12,14 @@ imports ``torch`` and ``numpy`` and nothing of ``jax`` or ``repro``:
 - ``repro_torch.kernels`` — the CUDA kernels (``frontier_hop``,
                             ``gather_scores``, ``gather_scores_masked``,
                             ``flat_topk``, ``scatter_rows``,
-                            ``flash_attention``, ``decode_attention``),
-                            each beside its plain PyTorch version,
-                            behind ``ops``.
-- ``repro_torch.models``  — the dense decoder (llama3.2-3b and kin):
-                            prefill and decode through the attention
-                            kernels, an in-place KV cache; ``configs``
-                            holds the ten architectures.
+                            ``flash_attention``, ``decode_attention``,
+                            ``mamba_scan``), each beside its plain
+                            PyTorch version, behind ``ops``.
+- ``repro_torch.models``  — the dense decoder (llama3.2-3b and kin) and
+                            the ssm one (falcon-mamba-7b): prefill and
+                            decode through the kernels, an in-place
+                            cache; ``configs`` holds the ten
+                            architectures.
 - ``repro_torch.serving`` — the engine: cache in front of the model;
                             ``launch.serve`` is its driver and CLI.
 - ``repro_torch.obs``     — deterministic spans, histograms and exports.

@@ -1,5 +1,6 @@
-// Helpers shared by the attention kernels: fp32 <-> element conversions,
-// warp reductions, and the running-max floor of the online softmax.
+// Helpers shared by the attention kernels (and the scan kernel's
+// conversions): fp32 <-> element conversions, warp reductions, and the
+// running-max floor of the online softmax.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

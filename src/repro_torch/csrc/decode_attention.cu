@@ -1,17 +1,19 @@
 // decode_attention: one new token per sequence against a ragged KV cache,
-// GQA, optional logit softcap, fp32 online softmax. No window: the TPU
-// kernel has none. Replaces repro/kernels/decode_attention.py:
-// decode_attention (_decode_kernel).
+// GQA, optional logit softcap and sliding window, fp32 online softmax.
+// Replaces repro/kernels/decode_attention.py: decode_attention
+// (_decode_kernel), which has no window; the window is the one the model's
+// attend_decode masks (gemma2's local layers).
 //
 // One block owns one (batch, KV head) and all G query heads of its group, so
 // each K/V row is read from memory once per group. A row of DH elements is
 // LPR lanes' 16-byte loads (LPR = DH·sizeof(T)/16, at most 32; a lane takes
 // CPL such words), so a warp reads RPW = 32/LPR rows at once, and every warp
-// keeps U row loads in flight before it computes. Rows are streamed only up
-// to kv_len[b] (the ragged skip): nothing past it is read. Each lane group
-// keeps a running (m, l, acc) per query head in fp32 registers; the groups
-// of a warp merge by shuffles and the warps of the block through shared
-// memory, and the output is acc / max(l, 1e-30) in q's dtype (0 when kv_len
+// keeps U row loads in flight before it computes. Rows are streamed only in
+// [first, kv_len[b]), first = max(0, kv_len[b] - window) with a window and 0
+// without: nothing past kv_len (the ragged skip) or before the window is
+// read. Each lane group keeps a running (m, l, acc) per query head in fp32
+// registers; the groups of a warp merge by shuffles and the warps of the
+// block through shared memory, and the output is acc / max(l, 1e-30) in q's dtype (0 when kv_len
 // is 0). Strides are in elements, the head dimension contiguous, and every
 // row 16-byte aligned (the wrapper checks), so the model's (B, S, Hkv, dh)
 // cache is read through a transposed view with no copy.
@@ -31,6 +33,7 @@ struct DecodeParams {
   long long q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh;
   int S;
   float scale, softcap;
+  int window;                                    // 0 = none
 };
 
 template <typename T, int DH, int G>
@@ -54,6 +57,7 @@ __global__ void __launch_bounds__(kDecWarps * 32) decode_kernel(DecodeParams p) 
   const int sub = lane / LPR;
   const int w0 = (lane % LPR) * CPL;             // this lane's first word
   const int len = min(max(p.kv_len[b], 0), p.S);
+  const int first = p.window > 0 ? max(len - p.window, 0) : 0;
 
   const T* Qb = static_cast<const T*>(p.q) + b * p.q_sb + (hk * G) * p.q_sh;
   const T* Kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
@@ -73,7 +77,7 @@ __global__ void __launch_bounds__(kDecWarps * 32) decode_kernel(DecodeParams p) 
     for (int e = 0; e < E; ++e) acc[h][e] = 0.f;
   }
 
-  for (int base = warp * RPW; base < len; base += STEP * U) {
+  for (int base = first + warp * RPW; base < len; base += STEP * U) {
     uint4 kw[U][CPL], vw[U][CPL];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -208,18 +212,19 @@ cudaError_t dispatch_dh(const DecodeParams& p, int B, int Hkv, int g, int dh, cu
 
 // strides: 10 element strides: q (batch, head), k (batch, head, seq),
 // v (batch, head, seq), o (batch, head). dtype 0 = fp32, 1 = bf16.
-// softcap <= 0 means none. dh in {64, 128, 256}, g in {1, 2, 3, 4, 8}.
+// softcap <= 0 and window <= 0 mean none. dh in {64, 128, 256}, g in
+// {1, 2, 3, 4, 8}.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* kv_len, void* o,
                                        const long long* strides, int B, int Hq, int Hkv,
-                                       int S, int dh, float scale, float softcap, int dtype,
-                                       void* stream) {
+                                       int S, int dh, float scale, float softcap, int window,
+                                       int dtype, void* stream) {
   using namespace repro_torch::attn;
   if (B == 0 || Hkv == 0) return static_cast<int>(cudaGetLastError());
   DecodeParams p{q, k, v, static_cast<const int*>(kv_len), o,
                  strides[0], strides[1], strides[2], strides[3], strides[4],
                  strides[5], strides[6], strides[7], strides[8], strides[9],
-                 S, scale, softcap};
+                 S, scale, softcap, window};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int g = Hq / Hkv;
   const cudaError_t err = dtype == 1 ? dispatch_dh<__nv_bfloat16>(p, B, Hkv, g, dh, s)

@@ -1,5 +1,5 @@
-"""Hand-written Hopper (sm_90a) CUDA kernels: the cache data plane and the
-model's attention.
+"""Hand-written Hopper (sm_90a) CUDA kernels: the cache data plane, the
+model's attention and its Mamba layers' selective scan.
 
 Each module holds a kernel's wrapper, its plain PyTorch version and a
 launch counter (``<wrapper>.launches``); the CUDA sources are in
@@ -12,5 +12,7 @@ use. ``ops`` is the public surface; ``ref`` holds the oracles.
     flat_topk        — category-masked cosine top-1 over the whole table
     scatter_update   — in-place row scatter (the device delta flush)
     flash_attention  — tiled GQA prefill attention (causal/window/softcap)
-    decode_attention — one-token GQA decode against a ragged KV cache
+    decode_attention — one-token GQA decode against a ragged KV cache,
+                       optionally windowed
+    mamba_scan       — the Mamba1 selective scan, state carried over L
 """

@@ -34,11 +34,12 @@ SIGNATURES = {
     "gather_scores_masked_launch": [P, P, P, P, P, P, P, LL, I, I, I, I, P],
     "flash_attention_launch": [P, P, P, P, P, I, I, I, I, I, I, I, I, I,
                                F, F, I, P],
-    "decode_attention_launch": [P, P, P, P, P, P, I, I, I, I, I, F, F, I, P],
+    "decode_attention_launch": [P, P, P, P, P, P, I, I, I, I, I, F, F, I, I, P],
     "frontier_hop_launch": [P, P, P, P, P, P, P, P, P, P, P,
                             LL, I, I, I, I, I, P],
     "flat_topk_launch": [P, P, P, P, P, P, P, P, P, P,
                          LL, I, I, I, I, I, P],
+    "mamba_scan_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
 }
 
 _LIB: ctypes.CDLL | None = None

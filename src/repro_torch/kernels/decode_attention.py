@@ -16,9 +16,10 @@ kernel's ragged tile skip, at row granularity); the softmax is fp32 and
 online. The kernel takes strides, so the model's (B, S, Hkv, dh) cache is
 read through a (B, Hkv, S, dh) view with no transpose or copy per step.
 
-The TPU kernel has no window, and neither has this one: a windowed decode
-(gemma2's local layers) raises in ``models.attention.attend_decode`` on
-every device.
+Beyond the TPU kernel, a sliding ``window`` (gemma2's local layers, as the
+reference's ``attend_decode`` masks it): sequence b sees rows
+[max(0, kv_len[b] - window), kv_len[b]), and the row loop starts at that
+lower bound, so rows before the window are never read either.
 """
 
 from __future__ import annotations
@@ -37,14 +38,18 @@ GROUPS = (1, 2, 3, 4, 8)
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor, *, softcap: float | None = None,
-                     scale: float | None = None) -> torch.Tensor:
+                     window: int | None = None, scale: float | None = None
+                     ) -> torch.Tensor:
     """q (B, Hq, dh); k, v (B, Hkv, S, dh), any strides with dh contiguous
     and 16-byte aligned rows; kv_len (B,) int32 -> (B, Hq, dh) in q's dtype.
+    ``window`` (None = none) keeps the last ``window`` rows before kv_len.
     A CPU q takes the plain version; a CUDA q launches the kernel (fp32 or
     bf16, dh in {64, 128, 256}, Hq / Hkv in {1, 2, 3, 4, 8})."""
+    if window is not None and window <= 0:
+        raise ValueError("decode_attention: window must be positive")
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_len=kv_len, softcap=softcap,
-                                      scale=scale)
+                                      window=window, scale=scale)
     check_heads("decode_attention", q, k, v)
     B, Hq, dh = q.shape
     Hkv, S = k.shape[1], k.shape[2]
@@ -67,7 +72,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = _build.library().decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
         ctypes.addressof(arr), B, Hq, Hkv, S, dh,
-        scale if scale is not None else dh ** -0.5, softcap or 0.0,
+        scale if scale is not None else dh ** -0.5, softcap or 0.0, window or 0,
         _DTYPES[q.dtype], _build.stream(q.device))
     _build.check(err, "decode_attention")
     decode_attention.launches += 1

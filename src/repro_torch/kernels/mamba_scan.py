@@ -1,0 +1,77 @@
+"""Mamba1 selective scan, the state carried over the whole sequence.
+
+Replaces the TPU kernel ``repro/kernels/mamba_scan.py:mamba_scan``
+(``_mamba_kernel``) with ``csrc/mamba_scan.cu``. The port's Mamba block
+(``models/mamba.mamba_mix``) calls it through ``ops.mamba_scan`` for every
+Mamba layer of every prefill and decode step.
+
+Bound on the H100: bytes. At the serve prefill shape (Bt = 8, L = 64,
+Dm = 8192, N = 16) the call moves ~38 MB (x and dt in, y out, B and C, the
+state out) and takes 67 M ``exp``s, ~11 µs and ~17 µs on the SFUs; a
+decode step (L = 1) is launch latency. The TPU kernel walks L over a
+sequential grid with the state in VMEM; here one block owns 16 channels of
+one sequence for the whole of L, one lane per state element in a
+register, so nothing of size (Bt, L, Dm, N) is materialized (the
+reference's jnp path builds (B, L, Dm, N) fp32 ``dA`` and ``dBx``). Chunks
+of 64 steps of x, dt, B and C are staged in shared memory, and y leaves
+through it as coalesced rows.
+
+Beyond the TPU kernel: an optional initial state ``h0`` (the oracle has
+it; a decode step needs it), and ``h_out``, which may be ``h0`` itself, so
+decode updates a layer's state in the cache in place. The TPU wrapper's
+padding of L with dt = 0 and its ``block_d``, ``block_l`` and
+``interpret`` have no counterpart: the kernel takes any L ≥ 1 and any Dm.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.flash_attention import _DTYPES
+
+mamba_scan_plain = ref.mamba_scan_ref
+STATE_SIZES = (8, 16)
+
+
+def mamba_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+               C: torch.Tensor, D: torch.Tensor, h0: torch.Tensor | None = None, *,
+               h_out: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (Bt, L, Dm) fp32 or bf16; dt (Bt, L, Dm), A (Dm, N), B, C (Bt, L, N),
+    D (Dm,) and h0 (Bt, Dm, N) fp32 -> (y (Bt, L, Dm) in x's dtype, h_final
+    (Bt, Dm, N) fp32). ``h_out`` (may alias ``h0``) receives h_final in
+    place and is returned. A CPU x takes the plain version; a CUDA x
+    launches the kernel (contiguous tensors, N in {8, 16}, L ≥ 1)."""
+    Bt, L, Dm = x.shape
+    N = A.shape[1]
+    if h_out is not None and (h_out.shape != (Bt, Dm, N) or h_out.dtype != torch.float32):
+        raise ValueError("mamba_scan: h_out must be (Bt, Dm, N) fp32")
+    if x.device.type == "cpu":
+        y, h = mamba_scan_plain(x, dt, A, B, C, D, h0)
+        return y, h if h_out is None else h_out.copy_(h)
+    tensors = [x, dt, A, B, C, D] + [t for t in (h0, h_out) if t is not None]
+    _build.require_cuda("mamba_scan", *tensors)
+    if x.dtype not in _DTYPES or any(t.dtype != torch.float32 for t in tensors[1:]):
+        raise ValueError("mamba_scan: x must be fp32 or bf16 and every other "
+                         "tensor fp32")
+    if N not in STATE_SIZES or L < 1:
+        raise ValueError(f"mamba_scan: N={N} must be in {STATE_SIZES} and L={L} ≥ 1")
+    if (dt.shape != x.shape or A.shape != (Dm, N) or B.shape != (Bt, L, N)
+            or C.shape != B.shape or D.shape != (Dm,)
+            or (h0 is not None and h0.shape != (Bt, Dm, N))):
+        raise ValueError("mamba_scan: shapes must be x, dt (Bt, L, Dm); A (Dm, N); "
+                         "B, C (Bt, L, N); D (Dm,); h0 (Bt, Dm, N)")
+    y = torch.empty_like(x)
+    h = h_out if h_out is not None else torch.empty((Bt, Dm, N), dtype=torch.float32,
+                                                    device=x.device)
+    err = _build.library().mamba_scan_launch(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+        D.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(), h.data_ptr(),
+        Bt, L, Dm, N, _DTYPES[x.dtype], _build.stream(x.device))
+    _build.check(err, "mamba_scan")
+    mamba_scan.launches += 1
+    return y, h
+
+
+mamba_scan.launches = 0

@@ -1,12 +1,13 @@
 """Public wrappers around the port's kernels.
 
 The counterpart of ``repro.kernels.ops`` for the cache data plane
-(lookup/insert) and the model's attention (prefill/decode). Dispatch
+(lookup/insert), the model's attention (prefill/decode) and its Mamba
+layers' selective scan. Dispatch
 follows the tensors' device: a CPU tensor goes to the kernel module's
 plain PyTorch version, a CUDA tensor to the hand-written kernel, or the
 call raises. There is no fallback from one to the other. Kernels take any
-N, B and d (a multiple of 4), and any Sq and Skv, so unlike the TPU
-wrappers nothing is padded and no output needs slicing back; the TPU
+N, B and d (a multiple of 4), any Sq and Skv, and any L, so unlike the
+TPU wrappers nothing is padded and no output needs slicing back; the TPU
 wrappers' tile sizes and ``interpret`` switch have no counterpart.
 """
 
@@ -19,6 +20,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flat_topk as _ft
 from repro_torch.kernels import frontier_hop as _fh
 from repro_torch.kernels import gather_scores as _gs
+from repro_torch.kernels import mamba_scan as _ms
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import scatter_update as _su
 
@@ -133,9 +135,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     kv_len: torch.Tensor, *, softcap: float | None = None
-                     ) -> torch.Tensor:
+                     kv_len: torch.Tensor, *, softcap: float | None = None,
+                     window: int | None = None) -> torch.Tensor:
     """Decode one token against the KV cache: q (B, Hq, dh), k/v
     (B, Hkv, S, dh) (strided views welcome), kv_len (B,) masks the ragged
-    tail exactly; kv_len 0 gives 0."""
-    return _da.decode_attention(q, k, v, _i32(kv_len.to(q.device)), softcap=softcap)
+    tail exactly; kv_len 0 gives 0. ``window`` keeps only the last
+    ``window`` positions before kv_len (gemma2's local layers)."""
+    return _da.decode_attention(q, k, v, _i32(kv_len.to(q.device)), softcap=softcap,
+                                window=window)
+
+
+def mamba_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+               C: torch.Tensor, D: torch.Tensor, h0: torch.Tensor | None = None, *,
+               h_out: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Selective scan: x, dt (Bt, L, Dm); A (Dm, N); B, C (Bt, L, N);
+    D (Dm,); h0 (Bt, Dm, N) or None (zeros) -> (y like x, h_final fp32).
+    Any L ≥ 1, nothing padded. ``h_out`` (contiguous fp32, may be ``h0``
+    itself) receives h_final in place: a decode step updates the layer's
+    cached state without a copy."""
+    return _ms.mamba_scan(x.contiguous(), _f32(dt), _f32(A), _f32(B), _f32(C), _f32(D),
+                          None if h0 is None else _f32(h0), h_out=h_out)

@@ -174,13 +174,15 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          kv_len: torch.Tensor | int | None = None,
-                         softcap: float | None = None,
+                         softcap: float | None = None, window: int | None = None,
                          scale: float | None = None) -> torch.Tensor:
     """One-token GQA decode: q (B, Hq, dh) against k/v (B, Hkv, S, dh).
 
-    ``kv_len`` (scalar or (B,)) hides positions >= kv_len; a sequence with
-    kv_len 0 attends to nothing and gives 0. k/v may be strided views (the
-    model's cache is (B, S, Hkv, dh) seen through a transpose).
+    ``kv_len`` (scalar or (B,); None = S) hides positions >= kv_len; a
+    sequence with kv_len 0 attends to nothing and gives 0. ``window`` also
+    hides positions <= (kv_len - 1) - window, as the reference's
+    ``models.attention.attend_decode`` masks it. k/v may be strided views
+    (the model's cache is (B, S, Hkv, dh) seen through a transpose).
     """
     B, Hq, dh = q.shape
     Hkv, S = k.shape[1], k.shape[2]
@@ -190,12 +192,40 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     logits = qf @ k.to(torch.float32)[:, :, None].transpose(-1, -2) * scale
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
-    kpos = torch.arange(S, device=q.device)
-    if kv_len is None:
-        mask = torch.ones((B, S), dtype=torch.bool, device=q.device)
-    else:
-        lens = torch.as_tensor(kv_len, device=q.device).reshape(-1)
-        mask = kpos[None, :] < lens.expand(B)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    lens = torch.as_tensor(S if kv_len is None else kv_len, device=q.device)
+    lens = lens.reshape(-1).expand(B)[:, None]
+    mask = kpos < lens
+    if window is not None:
+        mask &= kpos > (lens - 1) - window
     out = _attend_plain(logits, mask[:, None, None, None, :],
                         v.to(torch.float32)[:, :, None])
     return out.reshape(B, Hq, dh).to(q.dtype)
+
+
+def mamba_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                   h0: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Selective scan (Mamba1), a sequential loop over L.
+
+    x, dt (Bt, L, Dm); A (Dm, N); B, C (Bt, L, N); D (Dm,); h0 (Bt, Dm, N)
+    or None (zeros).
+    h_t = exp(dt_t ⊙ A) * h_{t-1} + (dt_t * x_t) ⊗ B_t
+    y_t = Σ_n h_t[:, :, n] C_t[n] + D ⊙ x_t
+    All arithmetic is fp32. Returns (y (Bt, L, Dm) in x's dtype, h_final
+    (Bt, Dm, N) fp32).
+    """
+    Bt, L, Dm = x.shape
+    f32 = torch.float32
+    xf, dtf, Bf, Cf = (t.to(f32) for t in (x, dt, B, C))
+    Af, Df = A.to(f32), D.to(f32)
+    h = (torch.zeros((Bt, Dm, A.shape[1]), dtype=f32, device=x.device)
+         if h0 is None else h0.to(f32))
+    ys = []
+    for t in range(L):
+        dA = torch.exp(dtf[:, t, :, None] * Af[None])
+        dBx = (dtf[:, t] * xf[:, t])[:, :, None] * Bf[:, t, None, :]
+        h = dA * h + dBx
+        ys.append((h * Cf[:, t, None, :]).sum(-1) + Df[None] * xf[:, t])
+    return torch.stack(ys, 1).to(x.dtype), h

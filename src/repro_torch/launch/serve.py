@@ -2,13 +2,15 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
         --index hnsw --use-device                       # on the card
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
         --reduced --requests 48 --device cpu            # on the CPU
 
 The counterpart of ``repro.launch.serve``: feature-hash embeddings →
 category policies → hybrid cache (Algorithm 1) → batched prefill/decode on
-the PyTorch model for misses (the attention kernels on the card) → cache
-insertion, with adaptive load-based policy adjustment. ``--cache none``
+the PyTorch model for misses (a dense model such as llama3.2-3b through
+the attention kernels on the card, an ssm model such as falcon-mamba-7b
+through the selective-scan kernel; MoE, hybrid, encoder-decoder and VLM
+architectures raise until their slices are ported) → cache insertion, with adaptive load-based policy adjustment. ``--cache none``
 serves everything from the model (the uncached baseline). Weights are
 random, drawn on the device from ``seed`` with a ``torch.Generator``;
 they differ from the reference's ``jax.random`` draws, but hits and

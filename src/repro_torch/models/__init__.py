@@ -1,10 +1,12 @@
-"""The LLM behind the cache, dense family (the ported part of
+"""The LLM behind the cache, dense and ssm families (the ported part of
 ``repro.models``).
 
     config       — ArchConfig (copied; every family's fields)
-    layers       — norms, rotary, SwiGLU, initializers
+    layers       — norms, rotary, SwiGLU, initializers (attention, Mamba)
     attention    — GQA attention: prefill and decode through the kernels
-    transformer  — the dense decoder stack and its in-place KV cache
+    mamba        — the Mamba1 block through the selective-scan kernel
+    transformer  — the decoder stack (attention + SwiGLU, or Mamba) and its
+                   in-place K/V and Mamba-state cache
     model        — Model facade: init_params, init_cache, prefill, decode_step
     convert      — the reference's parameters carried across
 """

@@ -55,16 +55,11 @@ def attend_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     """One-token decode. q (B, H, dh); caches (B, S, Hkv, dh); kv_len (B,).
     The new token sits at position kv_len − 1 (already written). The
     kernel reads the cache through a (B, Hkv, S, dh) view, so no step
-    transposes or copies it.
-
-    A sliding window (gemma2's local layers) raises: the TPU decode kernel
-    takes none, and neither does the port's yet (ROADMAP).
+    transposes or copies it. A sliding window (gemma2's local layers)
+    keeps positions > (kv_len − 1) − window, as the reference masks.
     """
-    if window is not None:
-        raise NotImplementedError("attend_decode: a windowed decode has no kernel "
-                                  "yet (the TPU decode kernel takes no window)")
     return ops.decode_attention(q, k_cache.transpose(1, 2), v_cache.transpose(1, 2),
-                                kv_len, softcap=softcap)
+                                kv_len, softcap=softcap, window=window)
 
 
 def out_project(attn: torch.Tensor, p: dict) -> torch.Tensor:

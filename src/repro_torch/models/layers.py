@@ -1,6 +1,6 @@
 """Shared layers: norms, rotary embeddings, the SwiGLU MLP, parameter init.
 
-The counterpart of ``repro.models.layers`` for the dense family.
+The counterpart of ``repro.models.layers`` for the dense and ssm families.
 Parameters are plain dicts of tensors. The norm, the rotary angles and the
 SiLU run in fp32 whatever the activation dtype, as in the reference;
 matrix products take the activation dtype (``torch.matmul``, as the
@@ -11,6 +11,8 @@ parameters across with ``models.convert``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -81,3 +83,26 @@ def init_attention(gen, cfg, device) -> dict:
             "wv": normal(gen, (d, cfg.n_kv_heads, dh), dt, s, device),
             "wo": normal(gen, (cfg.n_heads, dh, d), dt, (cfg.n_heads * dh) ** -0.5,
                          device)}
+
+
+def init_mamba(gen, cfg, device) -> dict:
+    """A Mamba1 mixer's parameters: ``A_log``, ``dt_bias`` and ``D`` in fp32,
+    the rest in the config's dtype. ``A_log`` is the draw U(log 0.5, log 16)
+    itself (the reference's ``log(-A)`` with ``A = -exp(U)``)."""
+    dt = dtype_of(cfg)
+    d, di, ns = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_d_state
+    dt_rank = max(1, d // 16)
+
+    def uniform(shape, lo, hi):
+        u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
+        return u.mul_(hi - lo).add_(lo)
+
+    return {"w_in": normal(gen, (d, 2 * di), dt, d ** -0.5, device),       # [x, z]
+            "conv_w": normal(gen, (cfg.ssm_d_conv, di), dt, 0.2, device),
+            "conv_b": torch.zeros(di, dtype=dt, device=device),
+            "w_x_proj": normal(gen, (di, dt_rank + 2 * ns), dt, di ** -0.5, device),
+            "w_dt": normal(gen, (dt_rank, di), dt, dt_rank ** -0.5, device),
+            "dt_bias": torch.log(torch.expm1(uniform((di,), 1e-3, 1e-1).clamp_(min=1e-4))),
+            "A_log": uniform((di, ns), math.log(0.5), math.log(16.0)),
+            "D": torch.ones(di, dtype=torch.float32, device=device),
+            "w_out": normal(gen, (di, d), dt, di ** -0.5, device)}

@@ -1,4 +1,5 @@
-"""Model facade for the dense family: init, KV cache, prefill, decode step.
+"""Model facade for the dense and ssm families: init, cache, prefill, decode
+step.
 
 The counterpart of ``repro.models.model`` for serving. Vocab is padded to
 a multiple of 2048 as in the reference, and padded rows score -1e30.
@@ -10,8 +11,12 @@ fp32 copy of the head, made on the first call for a given head tensor and
 kept on the model, so logits stay fp32 (the same products of bf16 values,
 summed in fp32) at the cost of Vp·d·4 bytes of memory.
 
-Training (``loss_fn``), whisper's encoder and the VLM's patch prefix are
-not ported: ``Model`` raises for those families.
+An ssm model (falcon-mamba) carries its Mamba state in the cache instead
+of K/V; ``kv_len`` is still returned and advanced, as the reference does,
+so the serving loop is the same for both families. Training
+(``loss_fn``), whisper's encoder and the VLM's patch prefix are not
+ported: ``Model`` raises for those families, and ``transformer.check_ported``
+for MoE layers.
 """
 
 from __future__ import annotations
@@ -90,7 +95,8 @@ class Model:
     @torch.inference_mode()
     def prefill(self, params, batch: dict, max_len: int):
         """tokens (B, S) -> (last-token logits (B, Vp) fp32, cache, kv_len
-        (B,) int32). Chunked at ``cfg.prefill_chunk`` when it divides S."""
+        (B,) int32). Chunked at ``cfg.prefill_chunk`` when it divides S (a
+        Mamba layer's state carries from chunk to chunk)."""
         cfg = self.cfg
         tokens = batch["tokens"].to(self.device)
         B, S = tokens.shape

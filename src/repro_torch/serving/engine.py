@@ -5,6 +5,10 @@ jits prefill and a ``lax.scan`` greedy decode into one function; here
 generation is a Python loop over ``Model.decode_step`` with the argmax on
 the device (first index on ties, as ``jnp.argmax``), and the tokens come
 to the host in ONE copy at the end of the loop, never one per token. The
+loop is the same for every ported family: a dense model's cache holds
+K/V, an ssm model's (falcon-mamba) its Mamba state, and both take
+``kv_len``. Prompts are fixed at ``prompt_len``, so no padding token ever
+enters a recurrence. The
 sharded cache tier (``core/shard.py``) is not ported yet, so ``cache`` is
 a ``SemanticCache``.
 

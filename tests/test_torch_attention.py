@@ -127,6 +127,65 @@ def test_decode_attention_parity(rng, softcap, dtype):
     _close(got, want, bf16)
 
 
+def _windowed_oracle(q, k, v, lens, window, softcap):
+    """The reference oracle under the reference model's window mask
+    (``repro/models/attention.py:145-147``): sequence b sees rows
+    [max(0, len - window), len), so the oracle runs on that slice alone."""
+    outs = []
+    for b, n in enumerate(lens):
+        lo = max(0, int(n) - window)
+        outs.append(np.asarray(jref.decode_attention_ref(
+            jnp.asarray(q[b:b + 1]), jnp.asarray(k[b:b + 1, :, lo:]),
+            jnp.asarray(v[b:b + 1, :, lo:]), kv_len=jnp.asarray([int(n) - lo]),
+            softcap=softcap)))
+    return np.concatenate(outs)
+
+
+@pytest.mark.parametrize("window", [1, 48, 300])
+@pytest.mark.parametrize("softcap", [None, 30.0])
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+def test_decode_attention_window(rng, window, softcap, dtype):
+    """A sliding window keeps rows (len - 1) - window < j < len: the port's
+    plain version and ops wrapper against the reference oracle on the
+    window's rows, and against the reference model's ``attend_decode``."""
+    from repro.models.attention import attend_decode as jattend_decode
+    B, Hq, Hkv, S, dh = 4, 4, 2, 256, 64
+    q = (rng.standard_normal((B, Hq, dh)) * 0.3).astype(dtype)
+    k = (rng.standard_normal((B, Hkv, S, dh)) * 0.3).astype(dtype)
+    v = (rng.standard_normal((B, Hkv, S, dh)) * 0.3).astype(dtype)
+    lens = np.array([256, 100, 30, 1], np.int32)
+    bf16 = dtype == jnp.bfloat16
+    got = ops.decode_attention(T(q), T(k), T(v), T(lens), softcap=softcap, window=window)
+    assert torch.equal(got, tda.decode_attention_plain(T(q), T(k), T(v), kv_len=T(lens),
+                                                       softcap=softcap, window=window))
+    _close(got, _windowed_oracle(q, k, v, lens, window, softcap).astype(dtype), bf16)
+    model = jattend_decode(jnp.asarray(q), jnp.asarray(k).swapaxes(1, 2),
+                           jnp.asarray(v).swapaxes(1, 2), jnp.asarray(lens),
+                           window=window, softcap=softcap)
+    _close(got, model, bf16)
+    if window < S:                              # the window bites on the full row
+        full = ops.decode_attention(T(q), T(k), T(v), T(lens), softcap=softcap)
+        assert F32(full - got)[0].std() > 1e-3
+
+
+def test_decode_attention_window_never_reads_outside(rng):
+    """Rows before the window count no more than rows past kv_len: garbage
+    there does not leak in, and kv_len 0 still gives 0."""
+    B, Hq, Hkv, S, dh = 3, 2, 2, 128, 32
+    q = rng.standard_normal((B, Hq, dh)).astype(np.float32)
+    k = rng.standard_normal((B, Hkv, S, dh)).astype(np.float32)
+    v = rng.standard_normal((B, Hkv, S, dh)).astype(np.float32)
+    lens = np.array([128, 70, 0], np.int32)
+    got = ops.decode_attention(T(q), T(k), T(v), T(lens), window=16)
+    k2, v2 = k.copy(), v.copy()
+    k2[0, :, :112], v2[1, :, :54] = 1e4, -1e4
+    k2[1, :, 70:] = 1e4
+    _close(ops.decode_attention(T(q), T(k2), T(v2), T(lens), window=16), got, False)
+    assert not got[2].any()
+    with pytest.raises(ValueError):
+        ops.decode_attention(T(q), T(k), T(v), T(lens), window=0)
+
+
 def test_decode_attention_ragged_and_empty(rng):
     """Rows past kv_len never count, and kv_len = 0 gives 0 as the TPU
     kernel does (its oracle's softmax over nothing would give NaN)."""

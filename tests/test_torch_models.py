@@ -1,4 +1,5 @@
 """repro_torch's model (dense family) against the JAX reference, on the CPU.
+The ssm family (falcon-mamba) is held by ``test_torch_mamba.py``.
 
 Configs are field-equal copies. For the reduced dense models the
 reference's random-init parameters are carried across
@@ -48,10 +49,11 @@ def test_configs_field_equal(arch):
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if jget_config(a).family != "dense"])
+                                  if jget_config(a).family not in ("dense", "ssm")])
 def test_unported_families_raise(arch):
-    """MoE, Mamba, hybrid, encoder-decoder and VLM models raise and name
-    what is missing; they are later slices."""
+    """MoE, hybrid, encoder-decoder and VLM models raise and name what is
+    missing; they are later slices (the ssm family is held by
+    ``test_torch_mamba.py``)."""
     with pytest.raises(NotImplementedError):
         Model(get_config(arch).reduced(), device="cpu")
 
@@ -125,17 +127,53 @@ def test_decode_from_the_same_cache_matches_reference(arch, rng):
 
 def test_softcap_model_prefill_matches_reference_and_windowed_decode_raises(rng):
     """gemma2 (attention and final logit softcaps, embedding scale, local
-    window layers): prefill matches the reference; a windowed decode has
-    no kernel (the TPU decode kernel takes no window) and raises."""
+    window layers of 64 in the reduced config): prefill of 60 tokens and
+    12 greedy decode steps match the reference, and the local layers'
+    window bites from the fifth step on (kv_len 65). A port model without
+    the window departs from the reference once it bites, so the mask is
+    what keeps them together."""
+    cfg, jm, jp, tm, tp = _pair("gemma2_2b", "float32")
+    assert cfg.sliding_window == 64 and cfg.local_global_alternating
+    tol, V, S, steps = TOL["float32"], cfg.vocab_size, 60, 12
+    nowin = Model(dataclasses.replace(cfg, sliding_window=None), device="cpu")
+    toks = rng.integers(1, V, (2, S)).astype(np.int32)
+    jl, jc, jk = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, S + steps)
+    tl, tc, tk = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, S + steps)
+    _, nc, nk = nowin.prefill(tp, {"tokens": torch.from_numpy(toks)}, S + steps)
+    np.testing.assert_allclose(_f32(tl)[:, :V], _f32(jl)[:, :V], atol=tol, rtol=0)
+    tok = np.asarray(jnp.argmax(jl[:, :V], -1)).astype(np.int32)
+    apart = []
+    for step in range(steps):
+        jl, jc, jk = jm.decode_step(jp, jc, jnp.asarray(tok), jk)
+        tl, tc, tk = tm.decode_step(tp, tc, torch.from_numpy(tok), tk)
+        nl, nc, nk = nowin.decode_step(tp, nc, torch.from_numpy(tok), nk)
+        a, b = _f32(jl)[:, :V], _f32(tl)[:, :V]
+        np.testing.assert_allclose(b, a, atol=tol, rtol=0)
+        top2 = np.sort(a, axis=1)[:, -2:]
+        clear = top2[:, 1] - top2[:, 0] > 2 * tol
+        assert np.array_equal(b.argmax(1)[clear], a.argmax(1)[clear])
+        apart.append(float(np.abs(_f32(nl)[:, :V] - a).max()))
+        tok = a.argmax(1).astype(np.int32)
+    assert int(tk[0]) == S + steps > cfg.sliding_window
+    assert max(apart[:4]) <= tol < min(apart[4:])
+
+
+def test_windowed_decode_from_the_same_cache_matches_reference(rng):
+    """gemma2 from the reference's own cache after a 70-token prefill
+    (past the window of 64): one windowed decode step agrees within 1e-4,
+    as the unwindowed decode does."""
     cfg, jm, jp, tm, tp = _pair("gemma2_2b", "float32")
     V = cfg.vocab_size
-    toks = rng.integers(1, V, (2, 16)).astype(np.int32)
-    jl, _, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, 20)
-    tl, cache, kv = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, 20)
-    np.testing.assert_allclose(_f32(tl)[:, :V], _f32(jl)[:, :V], atol=TOL["float32"],
-                               rtol=0)
-    with pytest.raises(NotImplementedError):
-        tm.decode_step(tp, cache, torch.from_numpy(toks[:, -1]), kv)
+    toks = rng.integers(1, V, (2, 70)).astype(np.int32)
+    _, jc, jk = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, 72)
+    cache = {n: torch.stack([to_tensor(jc["stack"][f"sub{i}"][n][g], "cpu")
+                             for g in range(cfg.n_layers // 2) for i in range(2)])
+             for n in ("k", "v")}
+    nxt = rng.integers(1, V, 2).astype(np.int32)
+    jl, _, _ = jm.decode_step(jp, jc, jnp.asarray(nxt), jk)
+    tl, _, _ = tm.decode_step(tp, cache, torch.from_numpy(nxt),
+                              torch.from_numpy(np.array(jk)))
+    np.testing.assert_allclose(_f32(tl)[:, :V], _f32(jl)[:, :V], atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("arch", DENSE)

@@ -118,11 +118,13 @@ def _traffic(n, seed):
     return WorkloadGenerator(TABLE1_WORKLOAD, rate_per_s=1e9, seed=seed).generate(n)
 
 
-def test_engine_tokens_and_reasons_match_reference():
+@pytest.mark.parametrize("arch", ["llama3_2_3b", "falcon_mamba_7b"])
+def test_engine_tokens_and_reasons_match_reference(arch):
     """Carried-across parameters (fp32): the same requests give the same
-    hit/miss reasons, the same generated tokens and the same counters."""
-    jcfg = jget_config("llama3_2_3b").reduced(**_small(dtype="float32"))
-    cfg = get_config("llama3_2_3b").reduced(**_small(dtype="float32"))
+    hit/miss reasons, the same generated tokens and the same counters,
+    for the dense and the ssm family."""
+    jcfg = jget_config(arch).reduced(**_small(dtype="float32"))
+    cfg = get_config(arch).reduced(**_small(dtype="float32"))
     jm = JModel(jcfg)
     jp = jm.init_params(jax.random.key(3))
     tm = Model(cfg, device="cpu")
@@ -157,13 +159,14 @@ def _counters(out):
              for c, row in out["per_category"].items()})
 
 
-def test_run_serving_counters_match_reference():
+@pytest.mark.parametrize("arch", ["llama3_2_3b", "falcon_mamba_7b"])
+def test_run_serving_counters_match_reference(arch):
     """Same seed, different random weights: served, hit rate, model tokens
     and per-category counters are identical."""
     kw = dict(n_requests=48, max_batch=8, prompt_len=16, max_new_tokens=4, seed=2,
               log=lambda *_: None)
-    want = jrun_serving(jget_config("llama3_2_3b").reduced(), **kw)
-    got = run_serving(get_config("llama3_2_3b").reduced(), device="cpu", **kw)
+    want = jrun_serving(jget_config(arch).reduced(), **kw)
+    got = run_serving(get_config(arch).reduced(), device="cpu", **kw)
     assert _counters(got) == _counters(want)
     assert got["served"] == 48 and 0 < got["hit_rate"] < 1
 
