@@ -376,6 +376,8 @@ def check_kernels(torch, dev) -> dict:
 # Serve shape: llama3.2-3b (Hq=24, Hkv=8, dh=128) at batch 8, prompt 64, 16
 # new tokens; long prefill 4,096; decode_32k 32,768 positions.
 HQ, HKV, DH = 24, 8, 128
+EDGE_CASES = (dict(causal=True, window=48, kv_offset=64), dict(causal=False, softcap=30.0),
+              dict(causal=True, kv_offset=64))
 
 
 def attn_close(torch, got, want, atol: float = SCORE_ATOL, what: str = "attention"
@@ -392,6 +394,25 @@ def attn_close(torch, got, want, atol: float = SCORE_ATOL, what: str = "attentio
     require(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
     require(bool((err <= tol).all()),
             f"{what} {got.dtype}: err {float(err.max())} past its tolerance")
+    return float(err.max())
+
+
+def flash_close(torch, fa, q, k, v, what: str = "flash_attention", **kw) -> float:
+    """The flash kernel against the fp32 oracle on the same inputs. fp32
+    within SCORE_ATOL; bf16 (tensor cores, probabilities rounded to bf16
+    before P·V) per element within 2^-7·max(|got|, |want|) + 2^-7·(P·|V|)
+    + SCORE_ATOL, P·|V| being the oracle on |V|."""
+    from repro_torch.kernels.ref import bf16_probability_tol
+    got = fa.flash_attention(q, k, v, **kw)
+    if q.dtype != torch.bfloat16:
+        return attn_close(torch, got, fa.flash_attention_plain(q, k, v, **kw), what=what)
+    f32 = [t.float() for t in (q, k, v)]
+    want = fa.flash_attention_plain(*f32, **kw)
+    pv = fa.flash_attention_plain(f32[0], f32[1], f32[2].abs(), **kw)
+    err = (got.float() - want).abs()
+    require(bool(torch.isfinite(got.float()).all()), f"{what}: non-finite output")
+    require(bool((err <= bf16_probability_tol(got, want, pv, SCORE_ATOL)).all()),
+            f"{what} bf16 {kw}: err {float(err.max())} past its tolerance")
     return float(err.max())
 
 
@@ -419,9 +440,7 @@ def check_attention(torch, dev) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             sets = [(rnd(B, HQ, S, DH, dtype=dtype), rnd(B, HKV, S, DH, dtype=dtype),
                      rnd(B, HKV, S, DH, dtype=dtype)) for _ in range(2 if S < 1024 else 1)]
-            err = max(attn_close(torch, fa.flash_attention(q, k, v, causal=True),
-                                 fa.flash_attention_plain(q, k, v, causal=True))
-                      for q, k, v in sets)
+            err = max(flash_close(torch, fa, q, k, v, causal=True) for q, k, v in sets)
             esz = sets[0][0].element_size()
             nbytes = esz * (2 * B * HQ * S * DH + 2 * B * HKV * S * DH)
             flops = 4 * B * HQ * DH * S * (S + 1) // 2      # causal pairs
@@ -444,10 +463,22 @@ def check_attention(torch, dev) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         q = rnd(2, HQ, 100, DH, dtype=dtype)
         k, v = rnd(2, HKV, 164, DH, dtype=dtype), rnd(2, HKV, 164, DH, dtype=dtype)
-        for kw in (dict(causal=True, window=48, kv_offset=64),
-                   dict(causal=False, softcap=30.0), dict(causal=True, kv_offset=64)):
-            attn_close(torch, fa.flash_attention(q, k, v, **kw),
-                       fa.flash_attention_plain(q, k, v, **kw))
+        for kw in EDGE_CASES:
+            flash_close(torch, fa, q, k, v, **kw)
+    # the bf16 kernel at every head dim of the configs: the serve shape and
+    # the edge cases (own generator, so the timed inputs stay as they were)
+    hgen = torch.Generator(device=dev)
+    hgen.manual_seed(2029)
+    for dh in (64, 128, 256):
+        def hrnd(*shape):
+            return torch.randn(shape, generator=hgen, device=dev).to(torch.bfloat16)
+        err = flash_close(torch, fa, hrnd(8, HQ, 64, dh), hrnd(8, HKV, 64, dh),
+                          hrnd(8, HKV, 64, dh), causal=True)
+        q, k, v = hrnd(2, HQ, 100, dh), hrnd(2, HKV, 164, dh), hrnd(2, HKV, 164, dh)
+        for kw in EDGE_CASES:
+            err = max(err, flash_close(torch, fa, q, k, v, **kw))
+        log(f"kernels: flash_attention bf16 dh={dh}: serve shape and edge cases held "
+            f"(max |err| {err:.3g})")
 
     # -- decode_attention through the model's (B, S, Hkv, dh) cache view ---
     for label, B, S in (("serve", 8, 80), ("decode_32k", 8, 32768)):
@@ -466,10 +497,13 @@ def check_attention(torch, dev) -> dict:
                              vc.transpose(1, 2), lens))
             err = 0.0
             for q, k, v, lens in sets:
-                got = da.decode_attention(q, k, v, lens)
-                err = max(err, attn_close(torch, got, da.decode_attention_plain(
-                    q, k, v, kv_len=lens)))
-                require(not bool(got[lens == 0].any()), "decode: kv_len 0 must give 0")
+                empty = lens.clone()
+                empty[1] = 0                                  # attends to nothing
+                for ln in (lens, empty):
+                    got = da.decode_attention(q, k, v, ln)
+                    err = max(err, attn_close(torch, got, da.decode_attention_plain(
+                        q, k, v, kv_len=ln)))
+                    require(not bool(got[ln == 0].any()), "decode: kv_len 0 must give 0")
                 # softcap, and softcap with a window: held, not timed
                 for kw in (dict(softcap=30.0), dict(softcap=30.0, window=48)):
                     attn_close(torch, da.decode_attention(q, k, v, lens, **kw),
@@ -483,7 +517,7 @@ def check_attention(torch, dev) -> dict:
             q, k, v, lens = sets[0]
             mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
             out[("decode_attention", label, str(dtype)[6:])] = dict(
-                max_abs_err=err,
+                max_abs_err=err, splits=da.num_splits(S, None, da.CHUNK), chunk=da.CHUNK,
                 ms=graph_ms(torch, [lambda s=s: da.decode_attention(*s) for s in sets]),
                 plain_ms=graph_ms(torch, [lambda s=s: da.decode_attention_plain(
                     *s[:3], kv_len=s[3]) for s in sets]),
@@ -493,6 +527,10 @@ def check_attention(torch, dev) -> dict:
             log(f"kernels: decode_attention {label} B={B} S={S} {dtype} "
                 f"{out[('decode_attention', label, str(dtype)[6:])]}")
             if label == "decode_32k":
+                row = out[("decode_attention", label, str(dtype)[6:])]
+                row["chunk_ms"] = chunk_sweep(torch, da, sets, None)
+                log(f"kernels: decode_attention decode_32k {dtype} ms by chunk "
+                    f"{row['chunk_ms']}")
                 out[("decode_attention", f"decode_32k_w{WINDOW}", str(dtype)[6:])] = \
                     windowed_decode(torch, da, sets, dtype)
     torch.cuda.empty_cache()
@@ -500,17 +538,37 @@ def check_attention(torch, dev) -> dict:
 
 
 WINDOW = 4096                  # gemma2's local layers
+CHUNKS = (512, 1024, 2048)     # decode split sizes measured at decode_32k
+
+
+def chunk_sweep(torch, da, sets, window) -> dict:
+    """decode_attention's time at each split size in CHUNKS (the port's
+    own is ``da.CHUNK``), each held against the plain version first."""
+    times = {}
+    for chunk in CHUNKS:
+        def call(s, chunk=chunk):
+            return da._decode(*s, softcap=None, window=window, scale=None, chunk=chunk)
+        for s in sets:
+            attn_close(torch, call(s), da.decode_attention_plain(*s[:3], kv_len=s[3],
+                                                                 window=window))
+        times[chunk] = graph_ms(torch, [lambda s=s: call(s) for s in sets])
+    return times
 
 
 def windowed_decode(torch, da, sets, dtype) -> dict:
     """decode_attention with a window of WINDOW on the decode_32k inputs:
-    held against the plain version and timed; the bound counts only the
-    rows inside each sequence's window."""
+    held against the plain version (kv_len 0 and the full length included)
+    and timed at each split size; the bound counts only the rows inside
+    each sequence's window."""
     err = 0.0
     for q, k, v, lens in sets:
-        got = da.decode_attention(q, k, v, lens, window=WINDOW)
-        err = max(err, attn_close(torch, got, da.decode_attention_plain(
-            q, k, v, kv_len=lens, window=WINDOW)))
+        empty = lens.clone()
+        empty[1] = 0
+        for ln in (lens, empty):
+            got = da.decode_attention(q, k, v, ln, window=WINDOW)
+            err = max(err, attn_close(torch, got, da.decode_attention_plain(
+                q, k, v, kv_len=ln, window=WINDOW)))
+            require(not bool(got[ln == 0].any()), "decode: kv_len 0 must give 0")
     B = sets[0][0].shape[0]
     esz = sets[0][0].element_size()
     live = statistics.mean(int(s[3].clamp(max=WINDOW).sum()) for s in sets)
@@ -522,14 +580,14 @@ def windowed_decode(torch, da, sets, dtype) -> dict:
     pos = torch.arange(S, device=q.device)[None, :]
     mask = ((pos < lens[:, None]) & (pos >= lens[:, None] - WINDOW))[:, None, None, :]
     row = dict(
-        max_abs_err=err,
+        max_abs_err=err, splits=da.num_splits(S, WINDOW, da.CHUNK), chunk=da.CHUNK,
         ms=graph_ms(torch, [lambda s=s: da.decode_attention(*s, window=WINDOW)
                             for s in sets]),
         plain_ms=graph_ms(torch, [lambda s=s: da.decode_attention_plain(
             *s[:3], kv_len=s[3], window=WINDOW) for s in sets]),
         bound_ms=b_w[0], bound_by=b_w[1],
         library_ms=sdpa_ms(torch, q[:, :, None], k, v, causal=False, mask=mask),
-        bytes=nbytes)
+        bytes=nbytes, chunk_ms=chunk_sweep(torch, da, sets, WINDOW))
     log(f"kernels: decode_attention decode_32k window {WINDOW} {dtype} {row}")
     return row
 
@@ -1107,7 +1165,7 @@ KERNELS = {
                      "src/repro/kernels/scatter_update.py:66"),
     "gather_scores_masked": ("src/repro_torch/csrc/gather_scores.cu",
                              "src/repro/kernels/gather_scores.py:173"),
-    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention": ("src/repro_torch/csrc/flash_attention_wgmma.cu",
                         "src/repro/kernels/flash_attention.py:117"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:103"),
@@ -1217,14 +1275,15 @@ def main(argv: list[str]) -> int:
         return 4
 
     launches.update({k: served[arch]["launches"][k] for k, arch in SERVE_KERNELS.items()})
-    fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "splits", "chunk", "chunk_ms")
     rows = []
     for name, (source, replaces) in KERNELS.items():
         key = (name, *MAIN_KEY.get(name, ("float32",)))
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": launches[name]}
-        row.update({f: numbers[key][f] for f in fields})
-        variants = {"_".join(k[1:]): {f: v[f] for f in fields}
+        row.update({f: numbers[key][f] for f in fields if f in numbers[key]})
+        variants = {"_".join(k[1:]): {f: v[f] for f in fields if f in v}
                     for k, v in numbers.items() if k[0] == name and k != key}
         if variants:
             row["variants"] = variants

@@ -11,8 +11,9 @@ use. ``ops`` is the public surface; ``ref`` holds the oracles.
                        and its category-masked variant
     flat_topk        — category-masked cosine top-1 over the whole table
     scatter_update   — in-place row scatter (the device delta flush)
-    flash_attention  — tiled GQA prefill attention (causal/window/softcap)
+    flash_attention  — tiled GQA prefill attention (causal/window/softcap):
+                       wgmma on the tensor cores for bf16, fp32 FMA for fp32
     decode_attention — one-token GQA decode against a ragged KV cache,
-                       optionally windowed
+                       optionally windowed, rows split across blocks
     mamba_scan       — the Mamba1 selective scan, state carried over L
 """

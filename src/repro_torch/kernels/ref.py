@@ -129,14 +129,17 @@ NEG_INF = -1e30         # the attention kernels' running-max floor
 
 
 def _attend_plain(logits: torch.Tensor, mask: torch.Tensor,
-                  v: torch.Tensor) -> torch.Tensor:
+                  v: torch.Tensor, p_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Masked softmax(logits) @ v in fp32, as the attention kernels compute
     it: a masked score takes no probability mass, the row max ignores it,
     and the output is ``acc / max(l, 1e-30)``, so a row with no visible key
     is 0 (``attention_ref``'s fully-masked rows, the decode kernel's
-    ``kv_len = 0``)."""
+    ``kv_len = 0``). ``p_dtype`` rounds the probabilities to that type
+    before both P·V and their sum ``l``."""
     m = logits.masked_fill(~mask, NEG_INF).amax(-1, keepdim=True)
     p = torch.where(mask, torch.exp(logits - m), torch.zeros_like(logits))
+    if p_dtype is not None:
+        p = p.to(p_dtype).to(torch.float32)
     l = p.sum(-1, keepdim=True)
     return (p @ v) / l.clamp_min(1e-30)
 
@@ -144,14 +147,17 @@ def _attend_plain(logits: torch.Tensor, mask: torch.Tensor,
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int | None = None,
                   softcap: float | None = None, kv_offset: int = 0,
-                  scale: float | None = None) -> torch.Tensor:
+                  scale: float | None = None,
+                  p_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Full-materialization GQA attention with masks and softcap.
 
     q (B, Hq, Sq, dh); k/v (B, Hkv, Skv, dh); Hq % Hkv == 0. Query i sits at
     absolute position i + kv_offset and sees key j iff j <= i + kv_offset
     (causal) and j > i + kv_offset - window (window). Scores, softmax and
-    P·V are fp32 (the probabilities are not rounded); the output takes q's
-    dtype.
+    P·V are fp32; the output takes q's dtype. By default the probabilities
+    are not rounded; ``p_dtype=torch.bfloat16`` rounds them to bf16 before
+    P·V and their sum, as the bf16 tensor-core kernel and the reference
+    model's ``attend_prefill`` do.
     """
     B, Hq, Sq, dh = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -168,8 +174,21 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= kpos <= qpos
     if window is not None:
         mask &= kpos > qpos - window
-    out = _attend_plain(logits, mask, v.to(torch.float32)[:, :, None])
+    out = _attend_plain(logits, mask, v.to(torch.float32)[:, :, None], p_dtype)
     return out.reshape(B, Hq, Sq, dh).to(q.dtype)
+
+
+def bf16_probability_tol(got: torch.Tensor, want: torch.Tensor, pv_abs: torch.Tensor,
+                         atol: float = 1e-5) -> torch.Tensor:
+    """Per-element tolerance of attention with bf16 probabilities against
+    the fp32 oracle ``want``: 2^-7·max(|got|, |want|) + 2^-7·(P·|V|) + atol,
+    where ``pv_abs`` is the oracle on |V|. Rounding each probability to
+    bf16 moves each term of the convex combination by at most 2^-8
+    relative, the sum l by as much again, and the output's own rounding
+    is one bf16 step."""
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    return (2.0 ** -7 * torch.maximum(g.abs(), w.abs())
+            + 2.0 ** -7 * pv_abs.to(torch.float32) + atol)
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -7,10 +7,12 @@ goes through ``ops.flash_attention`` and ``attend_decode`` through
 ``ops.decode_attention``, which run the CUDA kernels on CUDA tensors and
 their plain PyTorch versions on CPU tensors.
 
-One numerical difference, by design: the reference's ``attend_prefill``
-rounds the softmax probabilities to bf16 before P·V; the TPU kernel and
-the port keep them in fp32. Model outputs therefore agree with the
-reference within a tolerance, not bit for bit.
+Numerics of the prefill: the reference's ``attend_prefill`` rounds the
+softmax probabilities to bf16 before P·V. On the card the port's bf16
+kernel does the same (its tensor-core P·V takes bf16 P, and its ``l``
+sums those rounded probabilities); fp32 inputs, and every CPU tensor,
+keep them in fp32, as the TPU kernel does. Model outputs therefore agree
+with the reference within a tolerance, not bit for bit.
 """
 
 from __future__ import annotations

@@ -249,3 +249,119 @@ def test_ref_fully_masked_row_is_zero():
     k = torch.ones((1, 1, 4, 8))
     out = ref.attention_ref(q, k, k, causal=True, window=1, kv_offset=10)
     assert torch.equal(out, torch.zeros_like(out))
+
+
+# ------------------------------------------------------------ split-KV decode
+def _window_shift(x, lens, window):
+    """Rows [max(0, len - window), len) of each sequence moved to the front
+    (zeros behind): a windowed decode becomes a plain ragged decode with
+    kv_len = len - lo, which the reference's windowless kernel and oracle
+    take."""
+    if window is None:
+        return x, lens
+    out = np.zeros_like(x)
+    lo = np.maximum(lens - window, 0)
+    for b, start in enumerate(lo):
+        out[b, :, :x.shape[2] - start] = x[b, :, start:]
+    return out, (lens - lo).astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("chunk", [1, 7, 16, 48])
+def test_decode_split_plain_matches_reference(rng, chunk, window, dtype):
+    """The split-KV algorithm (partials per chunk, then the merge) against
+    the reference's oracle and its Pallas kernel in interpret mode, with
+    kv_len S, 0 and 1 present; chunk 48 = S is the one-pass case. A window
+    is given to the windowless reference as its rows shifted to the front."""
+    B, Hq, Hkv, S, dh = 4, 4, 2, 48, 32
+    q = (rng.standard_normal((B, Hq, dh)) * 0.5).astype(dtype)
+    k = (rng.standard_normal((B, Hkv, S, dh)) * 0.5).astype(dtype)
+    v = (rng.standard_normal((B, Hkv, S, dh)) * 0.5).astype(dtype)
+    lens = np.array([S, 0, 1, 29], np.int32)
+    softcap = None if window is None else 2.0
+    bf16 = dtype == jnp.bfloat16
+    got = tda.decode_attention_split_plain(T(q), T(k), T(v), T(lens), chunk,
+                                           window=window, softcap=softcap)
+    assert got.dtype == (torch.bfloat16 if bf16 else torch.float32)
+    assert not got[1].any()                          # kv_len 0 gives 0
+    ks, wl = _window_shift(np.asarray(k), lens, window)
+    vs, _ = _window_shift(np.asarray(v), lens, window)
+    kern = pallas_decode(jnp.asarray(q), jnp.asarray(ks), jnp.asarray(vs), jnp.asarray(wl),
+                         softcap=softcap, block_k=16, interpret=True)
+    _close(got, kern, bf16)
+    live = lens > 0
+    want = jref.decode_attention_ref(jnp.asarray(q[live]), jnp.asarray(ks[live]),
+                                     jnp.asarray(vs[live]), kv_len=jnp.asarray(wl[live]),
+                                     softcap=softcap)
+    _close(got[torch.from_numpy(live)], want, bf16)
+    _close(got, tda.decode_attention_plain(T(q), T(k), T(v), kv_len=T(lens),
+                                           window=window, softcap=softcap), bf16)
+
+
+@pytest.mark.parametrize("S,window,chunk,ns", [
+    (80, None, 1024, 1), (32768, None, 1024, 32), (32768, None, 512, 64),
+    (32768, 4096, 1024, 4), (32768, 4096, 2048, 2), (100, 5, 16, 1),
+    (48, None, 7, 7), (0, None, 16, 1), (48, 100, 16, 3),
+])
+def test_decode_num_splits(S, window, chunk, ns):
+    """NS = ceil(min(S, window or S) / chunk), at least 1, from static
+    shapes only."""
+    assert tda.num_splits(S, window, chunk) == ns
+
+
+@pytest.mark.parametrize("window", [None, 1, 5, 300])
+@pytest.mark.parametrize("chunk", [1, 7, 64])
+def test_decode_split_bounds_tile_the_live_rows(window, chunk):
+    """The NS splits of every sequence are disjoint, hold at most chunk rows
+    each, and together hold exactly the rows the sequence sees:
+    [max(0, kv_len - window), kv_len), nothing with kv_len 0."""
+    S = 200
+    lens = torch.tensor([0, 1, 5, 6, 63, 64, 65, 199, 200, 250], dtype=torch.int32)
+    ns = tda.num_splits(S, window, chunk)
+    seen = torch.zeros((len(lens), S), dtype=torch.int32)
+    for c in range(ns):
+        lo, hi = tda.split_bounds(lens, S, window, c, chunk)
+        assert bool(((hi - lo) <= chunk).all())
+        for b in range(len(lens)):
+            if hi[b] > lo[b]:
+                seen[b, lo[b]:hi[b]] += 1
+    n = lens.clamp(max=S)
+    first = n if window is None else (n - window).clamp(min=0)
+    first = torch.zeros_like(n) if window is None else first
+    pos = torch.arange(S)[None, :]
+    want = ((pos >= first[:, None]) & (pos < n[:, None])).to(torch.int32)
+    assert torch.equal(seen, want)
+
+
+# ------------------------------------------- bf16 probabilities (tensor cores)
+@pytest.mark.parametrize("kwargs", [
+    dict(causal=True), dict(causal=False), dict(causal=True, window=40),
+    dict(causal=True, softcap=5.0), dict(causal=True, kv_offset=32),
+])
+def test_attention_ref_bf16_probabilities_match_reference_model(rng, kwargs):
+    """``attention_ref(p_dtype=bf16)``, the numerics of the bf16 tensor-core
+    kernel, against the reference model's ``attend_prefill``, which also
+    rounds P to bf16 before P·V (``repro/models/attention.py``), on the
+    same bf16 inputs, within 2^-7·max(|got|, |want|) + 2^-7·(P·|V|) + 1e-5;
+    the oracle without rounding stays the default."""
+    from repro.models.attention import attend_prefill as jattend_prefill
+    B, Hq, Hkv, Sq, dh = 2, 4, 2, 96, 64
+    Skv = Sq + kwargs.get("kv_offset", 0)
+    q, k, v = _qkv(rng, B, Hq, Hkv, Sq, Skv, dh, jnp.bfloat16)
+    q, k = (q * 3).astype(q.dtype), (k * 3).astype(k.dtype)    # peaked rows
+    got = ref.attention_ref(T(q), T(k), T(v), p_dtype=torch.bfloat16, **kwargs)
+    sw = {"kv_chunk": 32} if Skv % 32 == 0 else {}
+    want = jattend_prefill(jnp.asarray(q).swapaxes(1, 2), jnp.asarray(k).swapaxes(1, 2),
+                           jnp.asarray(v).swapaxes(1, 2), **kwargs, **sw).swapaxes(1, 2)
+    want = torch.from_numpy(F32(want).copy())
+    f32 = [T(x).to(torch.float32) for x in (q, k, v)]
+    pv = ref.attention_ref(f32[0], f32[1], f32[2].abs(), **kwargs)
+    tol = ref.bf16_probability_tol(got, want, pv)
+    assert got.dtype == torch.bfloat16
+    assert bool(((got.to(torch.float32) - want).abs() <= tol).all())
+    exact = ref.attention_ref(*f32, **kwargs)
+    rounded = ref.attention_ref(*f32, p_dtype=torch.bfloat16, **kwargs)
+    assert not torch.equal(exact, rounded)
+    assert torch.equal(ref.attention_ref(*f32, **kwargs, p_dtype=None), exact)
+    assert bool(((rounded - exact).abs() <= ref.bf16_probability_tol(rounded, exact, pv)).all())
