@@ -10,16 +10,22 @@ Phases (any failure exits non-zero and prints no result):
 
 1. build   — compile ``src/repro_torch/csrc/*.cu`` (one nvcc per source);
 2. kernels — each kernel against its plain PyTorch version on the card at
-             the main path's shapes: the cache kernels in fp32 and int8,
-             the attention kernels in fp32 and bf16 at the serve shape and
-             at a long one (prefill 4,096; decode 32,768, and decode 32,768
-             with gemma2's window of 4,096), mamba_scan with fp32 and bf16
-             x at falcon-mamba-7b's serve prefill (8 × 64 × 8192, N 16),
+             the main path's shapes: the cache kernels in fp32 and int8
+             (flat_topk also at the main path's occupancy, a 3,000-row
+             valid prefix of 1,048,576, and with exact ties across groups,
+             warps, blocks and chunks, the lowest index held equal, at d
+             384 and at 128, 256, 512, 1,024 and 12,288 on 4,096 rows), the
+             attention kernels in fp32 and bf16 at the serve shape and at a
+             long one (prefill 4,096; decode 32,768, and decode 32,768 with
+             gemma2's window of 4,096), mamba_scan with fp32 and bf16 x at
+             N 16 and 8: falcon-mamba-7b's serve prefill (8 × 64 × 8192),
              its decode step (L 1, the state read from h0 and written back
              over it in place, held bit for bit against a separate h_out)
-             and a long scan (1 × 4,096), with times (CUDA events around
-             CUDA-graph replays), the plain version's time, the bound and
-             the library call's time where one exists;
+             and a long scan (1 × 4,096), and a ragged L and Dm (77 × 1,000,
+             held, not timed), with times (CUDA events around CUDA-graph
+             replays), the plain version's time, the bound (mamba_scan's
+             log lines also its exps' SFU floor) and the library call's
+             time where one exists;
 3. index   — ``HNSWIndex.bulk_build`` of 100,000 Table-1 vectors at
              capacity 131,072: searches of 8, a delta flush, searches again,
              the kernel path against the plain path on the card;
@@ -149,6 +155,75 @@ def max_err(a, b, torch) -> float:
 def unit_rows(torch, gen, n, d, device):
     x = torch.randn((n, d), generator=gen, device=device)
     return x / x.norm(dim=1, keepdim=True)
+
+
+SPARSE_ROWS = 3_000            # the main path's occupancy (its cache stays below it)
+TIE_N = 65_536
+# Where each query's planted duplicates sit past its base row: the same
+# 32-row group, the next groups (other warps and blocks), the next chunk
+# of 1,024 rows, and rows 8,192 and 32,768 further on.
+TIE_OFFSETS = (0, 5, 31, 32, 160, 1_024, 8_192, 32_768)
+# Every other width's kernel (the shared-memory kernel below d = 384, the
+# slice walk above it), held on 4,096 rows with ties 512 and 1,024 rows on
+# (the same warp's next flag loads).
+TIE_WIDTHS = (128, 256, 512, 1_024, 12_288)
+TIE_WIDE = (4_096, (0, 5, 31, 32, 160, 512, 1_024), 97)
+
+
+def time_flat_topk(torch, ft, tab, valid, cats, qsets, scales, err) -> dict:
+    """flat_topk's numbers on one table and valid mask: kernel and plain
+    times over ``qsets``, and the bound from this data (every valid flag,
+    the category of each valid row, once each row that a query of the
+    batch wants, the queries and the outputs; 2·d operations per
+    (row, query) pair that qualifies)."""
+    row_b = D * 4 if scales is None else D + 4
+    q, qc = qsets[0]
+    ok = valid[None, :] & ((qc[:, None] < 0) | (cats[None, :] == qc[:, None]))
+    nbytes = (int(ok.any(0).sum()) * row_b + FLAT_N + 4 * int(valid.sum())
+              + q.numel() * 4 + B * 16)
+    b_ft = bound(nbytes, 2 * D * int(ok.sum()))
+    fns = [lambda q=q, qc=qc: ft.flat_topk(tab, valid, q, cats, qc, scales)
+           for q, qc in qsets]
+    plain = [lambda q=q, qc=qc: ft.flat_topk_plain(tab, valid, q, cats, qc, scales)
+             for q, qc in qsets]
+    return dict(max_abs_err=err, ms=graph_ms(torch, fns), plain_ms=graph_ms(torch, plain),
+                bound_ms=b_ft[0], bound_by=b_ft[1], library_ms=None, bytes=nbytes)
+
+
+def flat_topk_ties(torch, ft, gen, dev, quantize, d=D, n=TIE_N, offsets=TIE_OFFSETS,
+                   stride=977) -> None:
+    """Exact ties on n rows of width d: every query's own direction is
+    planted at ``offsets`` past a base row of its own (valid, of its
+    category), so each query ties with itself across groups, warps,
+    blocks and chunks. The index must equal the plain version's, the
+    lowest of the copies; the query of a category no row has gets -1."""
+    table = unit_rows(torch, gen, n, d, dev)
+    valid = torch.rand(n, generator=gen, device=dev) > 0.1
+    cats = torch.randint(0, 7, (n,), generator=gen, device=dev, dtype=torch.int32)
+    q = unit_rows(torch, gen, B, d, dev)
+    qc = torch.tensor([-1, 0, 1, 2, 3, 4, 5, 99], dtype=torch.int32, device=dev)
+    bases = [stride * b + 3 for b in range(B)]
+    for b, base in enumerate(bases):
+        rows = torch.tensor([base + o for o in offsets], device=dev)
+        table[rows] = q[b]
+        valid[rows] = True
+        cats[rows] = int(qc[b]) if 0 <= int(qc[b]) < 7 else b % 7
+    tq, ts = quantize(table)
+    want = torch.tensor(bases[:-1] + [-1], dtype=torch.int32, device=dev)
+    for dtype, tab, scales in (("float32", table, None), ("int8", tq, ts)):
+        for c, qcat, expect in ((cats, qc, want),
+                                (None, None, torch.tensor(bases, dtype=torch.int32,
+                                                          device=dev))):
+            s_k, i_k = ft.flat_topk(tab, valid, q, c, qcat, scales)
+            s_p, i_p = ft.flat_topk_plain(tab, valid, q, c, qcat, scales)
+            torch.cuda.synchronize()
+            require(torch.equal(i_k, i_p) and torch.equal(i_k, expect),
+                    f"flat_topk {dtype} d={d} ties: idx {i_k.tolist()}, plain "
+                    f"{i_p.tolist()}, lowest copies {expect.tolist()}")
+            err = max_err(s_k, s_p, torch)
+            require(err <= SCORE_ATOL, f"flat_topk {dtype} d={d} ties: err {err}")
+    log(f"kernels: flat_topk d={d} ties at offsets {offsets} of {n} rows, fp32 and "
+        f"int8, masked and unmasked: lowest index held")
 
 
 def check_kernels(torch, dev) -> dict:
@@ -303,22 +378,31 @@ def check_kernels(torch, dev) -> dict:
             errs.append(max_err(s_k, s_p, torch))
         err = max(errs)
         require(err <= SCORE_ATOL, f"flat_topk {dtype}: err {err}")
-        row_b = D * 4 if scales is None else D + 4
-        q, qc = qsets[0]
-        wanted = valid & ((qc[:, None] < 0) | (cats[None, :] == qc[:, None])).any(0)
-        per_q = (valid[None, :] & ((qc[:, None] < 0) |
-                                   (cats[None, :] == qc[:, None]))).sum()
-        nbytes = int(wanted.sum()) * row_b + FLAT_N * 5 + q.numel() * 4 + B * 16
-        b_ft = bound(nbytes, 2 * D * int(per_q))
-        fns = [lambda q=q, qc=qc: ft.flat_topk(tab, valid, q, cats, qc, scales)
-               for q, qc in qsets]
-        plain = [lambda q=q, qc=qc: ft.flat_topk_plain(tab, valid, q, cats, qc, scales)
-                 for q, qc in qsets]
-        out[("flat_topk", dtype)] = dict(
-            max_abs_err=err, ms=graph_ms(torch, fns), plain_ms=graph_ms(torch, plain),
-            bound_ms=b_ft[0], bound_by=b_ft[1], library_ms=None, bytes=nbytes)
+        out[("flat_topk", dtype)] = time_flat_topk(torch, ft, tab, valid, cats, qsets,
+                                                   scales, err)
         log(f"kernels: flat_topk {dtype} {out[('flat_topk', dtype)]}")
-    del table, tq, ts, valid, cats, qsets
+        # the main path's occupancy: FlatIndex fills slots from 0, so a cache
+        # of 3,000 entries is a 3,000-row valid prefix of the 1,048,576 rows
+        sparse = torch.zeros_like(valid)
+        sparse[:SPARSE_ROWS] = True
+        errs = []
+        for q, qc in qsets:
+            s_k, i_k = ft.flat_topk(tab, sparse, q, cats, qc, scales)
+            s_p, i_p = ft.flat_topk_plain(tab, sparse, q, cats, qc, scales)
+            require(torch.equal(i_k, i_p), f"flat_topk {dtype} sparse: idx {i_k} vs {i_p}")
+            errs.append(max_err(s_k, s_p, torch))
+        err = max(errs)
+        require(err <= SCORE_ATOL, f"flat_topk {dtype} sparse: err {err}")
+        out[("flat_topk", "sparse", dtype)] = time_flat_topk(
+            torch, ft, tab, sparse, cats, qsets, scales, err)
+        log(f"kernels: flat_topk {dtype} {SPARSE_ROWS} valid rows "
+            f"{out[('flat_topk', 'sparse', dtype)]}")
+    del table, tq, ts, valid, cats, qsets, sparse
+    torch.cuda.empty_cache()
+    flat_topk_ties(torch, ft, gen, dev, quantize)
+    n, offsets, stride = TIE_WIDE
+    for d in TIE_WIDTHS:
+        flat_topk_ties(torch, ft, gen, dev, quantize, d, n, offsets, stride)
     torch.cuda.empty_cache()
 
     # -- scatter_rows: R in {8, 64} over every resident table ------------
@@ -593,11 +677,19 @@ def windowed_decode(torch, da, sets, dtype) -> dict:
 
 
 # ---------------------------------------------------------------- mamba_scan
-# falcon-mamba-7b: d_inner 8192, d_state 16; serve batch 8, prompt 64.
+# falcon-mamba-7b: d_inner 8192, d_state 16; serve batch 8, prompt 64. The
+# reduced configs' d_state is 8: every shape runs at both.
 DI, NS = 8192, 16
+SCAN_STATES = (NS, 8)
+SCAN_SHAPES = (("serve_prefill", 8, 64, False), ("serve_decode", 8, 1, True),
+               ("long", 1, 4096, False))
+# Held, not timed: a ragged L, and a Dm that is a multiple of no block's
+# channel count, as a prefill and as a decode step.
+SCAN_RAGGED = ((3, 77, 1000), (5, 1, 1000))
+SFU_EXP_PER_CLK = 16           # exp2 per clock on each SM's special function units
 
 
-def scan_inputs(torch, gen, dev, Bt, L, dtype):
+def scan_inputs(torch, gen, dev, Bt, L, dtype, Dm=DI, N=NS):
     """Inputs at the model's scales: x ~ N(0, 0.25), dt log-uniform in
     [1e-3, 0.1] (its softplus(dt_bias) init), A = -exp(U(log 0.5, log 16)),
     B, C ~ N(0, 1), D ~ N(0, 1), h0 ~ N(0, 0.01)."""
@@ -606,67 +698,116 @@ def scan_inputs(torch, gen, dev, Bt, L, dtype):
     def u(*shape, lo, hi):
         return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
 
-    x = (torch.randn((Bt, L, DI), generator=gen, device=dev) * 0.5).to(dtype)
-    dt = torch.exp(u(Bt, L, DI, lo=math.log(1e-3), hi=math.log(0.1)))
-    A = -torch.exp(u(DI, NS, lo=math.log(0.5), hi=math.log(16.0)))
-    B = torch.randn((Bt, L, NS), generator=gen, device=dev)
-    C = torch.randn((Bt, L, NS), generator=gen, device=dev)
-    D = torch.randn((DI,), generator=gen, device=dev)
-    h0 = torch.randn((Bt, DI, NS), generator=gen, device=dev) * 0.1
+    x = (torch.randn((Bt, L, Dm), generator=gen, device=dev) * 0.5).to(dtype)
+    dt = torch.exp(u(Bt, L, Dm, lo=math.log(1e-3), hi=math.log(0.1)))
+    A = -torch.exp(u(Dm, N, lo=math.log(0.5), hi=math.log(16.0)))
+    B = torch.randn((Bt, L, N), generator=gen, device=dev)
+    C = torch.randn((Bt, L, N), generator=gen, device=dev)
+    D = torch.randn((Dm,), generator=gen, device=dev)
+    h0 = torch.randn((Bt, Dm, N), generator=gen, device=dev) * 0.1
     return x, dt, A, B, C, D, h0
 
 
+def scan_check(torch, ms, inputs, start, label: str) -> float:
+    """One mamba_scan call against the plain version (y and h within
+    SCAN_ATOL); with an initial state, also the same call with h_out
+    aliased over a copy of it, held bit for bit against a separate h_out."""
+    x, dt, A, B, C, D = inputs[:6]
+    y_k, h_k = ms.mamba_scan(x, dt, A, B, C, D, start)
+    y_p, h_p = ms.mamba_scan_plain(x, dt, A, B, C, D, start)
+    torch.cuda.synchronize()
+    err = max(attn_close(torch, y_k, y_p, SCAN_ATOL, f"mamba_scan {label} y"),
+              attn_close(torch, h_k, h_p, SCAN_ATOL, f"mamba_scan {label} h"))
+    if start is not None:
+        state = start.clone()
+        y_a, h_a = ms.mamba_scan(x, dt, A, B, C, D, state, h_out=state)
+        torch.cuda.synchronize()
+        require(h_a.data_ptr() == state.data_ptr()
+                and torch.equal(y_a, y_k) and torch.equal(state, h_k),
+                f"mamba_scan {label}: aliased h0/h_out differs from a separate h_out")
+    return err
+
+
+def sfu_ms(torch, n_exp: int) -> float:
+    """The special function units' floor: n_exp exps at SFU_EXP_PER_CLK a
+    clock on every SM, at the card's highest SM clock (nvidia-smi)."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, check=True).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n_exp / (sms * SFU_EXP_PER_CLK * float(mhz) * 1e6) * 1e3
+
+
 def check_mamba(torch, dev) -> dict:
-    """mamba_scan against its plain version at the serve prefill (no h0),
-    the serve decode step (h0 aliased with h_out) and a long scan, with
-    fp32 and bf16 x; a prefill with h0 and the aliased decode are also held
-    bit for bit against the same call with a separate h_out."""
+    """mamba_scan against its plain version at N 16 and 8: the serve
+    prefill (no h0), the serve decode step (h0 aliased with h_out) and a
+    long scan, timed, and a ragged L and Dm, held; all with fp32 and bf16
+    x. A prefill with h0 and every decode are also held bit for bit
+    against the same call with a separate h_out. Each timed row's log
+    line carries the SFU floor of its exps beside its bound. A B that
+    starts off a 16-byte boundary is refused by the wrapper and copied by
+    ``ops.mamba_scan``."""
     from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
     gen = torch.Generator(device=dev)
     gen.manual_seed(2028)
     out = {}
-    for label, Bt, L, with_h0 in (("serve_prefill", 8, 64, False),
-                                  ("serve_decode", 8, 1, True), ("long", 1, 4096, False)):
-        for dtype in (torch.float32, torch.bfloat16):
-            sets = [scan_inputs(torch, gen, dev, Bt, L, dtype)
-                    for _ in range(2 if L < 1024 else 1)]
+    for N in SCAN_STATES:
+        for label, Bt, L, with_h0 in SCAN_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16):
+                sets = [scan_inputs(torch, gen, dev, Bt, L, dtype, N=N)
+                        for _ in range(2 if L < 1024 else 1)]
+                err = 0.0
+                for s in sets:
+                    starts = (s[6],) if with_h0 else (None, s[6]) if L < 1024 else (None,)
+                    for start in starts:
+                        err = max(err, scan_check(torch, ms, s, start, label))
+                esz = sets[0][0].element_size()
+                n = Bt * L * DI
+                nbytes = (n * (2 * esz + 4) + 2 * Bt * L * N * 4 + DI * (N + 1) * 4
+                          + Bt * DI * N * 4 * (2 if with_h0 else 1))
+                b_s = bound(nbytes, 7 * n * N)
+                if with_h0:
+                    fns = [lambda s=s: ms.mamba_scan(*s, h_out=s[6]) for s in sets]
+                    plain = [lambda s=s: ms.mamba_scan_plain(*s) for s in sets]
+                else:
+                    fns = [lambda s=s: ms.mamba_scan(*s[:6]) for s in sets]
+                    plain = [lambda s=s: ms.mamba_scan_plain(*s[:6]) for s in sets]
+                key = ("mamba_scan", label if N == NS else f"{label}_n{N}",
+                       str(dtype)[6:])
+                out[key] = dict(max_abs_err=err, ms=graph_ms(torch, fns),
+                                plain_ms=graph_ms(torch, plain,
+                                                  replays=5 if L > 1024 else 15),
+                                bound_ms=b_s[0], bound_by=b_s[1], library_ms=None,
+                                sfu_ms=sfu_ms(torch, n * N), bytes=nbytes, ops=7 * n * N)
+                log(f"kernels: mamba_scan {label} Bt={Bt} L={L} Dm={DI} N={N} {dtype} "
+                    f"{out[key]}")
+                del sets
+        for Bt, L, Dm in SCAN_RAGGED:
             err = 0.0
-            for x, dt, A, B, C, D, h0 in sets:
-                starts = (h0,) if with_h0 else (None, h0) if L < 1024 else (None,)
-                for start in starts:
-                    y_k, h_k = ms.mamba_scan(x, dt, A, B, C, D, start)
-                    y_p, h_p = ms.mamba_scan_plain(x, dt, A, B, C, D, start)
-                    torch.cuda.synchronize()
-                    err = max(err, attn_close(torch, y_k, y_p, SCAN_ATOL, "mamba_scan y"),
-                              attn_close(torch, h_k, h_p, SCAN_ATOL, "mamba_scan h"))
-                    if start is None:
-                        continue
-                    state = start.clone()                 # h_out over h0, in place
-                    y_a, h_a = ms.mamba_scan(x, dt, A, B, C, D, state, h_out=state)
-                    torch.cuda.synchronize()
-                    require(h_a.data_ptr() == state.data_ptr()
-                            and torch.equal(y_a, y_k) and torch.equal(state, h_k),
-                            f"mamba_scan {label}: aliased h0/h_out differs from a "
-                            f"separate h_out")
-            esz = sets[0][0].element_size()
-            n = Bt * L * DI
-            nbytes = (n * (2 * esz + 4) + 2 * Bt * L * NS * 4 + DI * (NS + 1) * 4
-                      + Bt * DI * NS * 4 * (2 if with_h0 else 1))
-            b_s = bound(nbytes, 7 * n * NS)
-            if with_h0:
-                fns = [lambda s=s: ms.mamba_scan(*s, h_out=s[6]) for s in sets]
-                plain = [lambda s=s: ms.mamba_scan_plain(*s) for s in sets]
-            else:
-                fns = [lambda s=s: ms.mamba_scan(*s[:6]) for s in sets]
-                plain = [lambda s=s: ms.mamba_scan_plain(*s[:6]) for s in sets]
-            key = ("mamba_scan", label, str(dtype)[6:])
-            out[key] = dict(max_abs_err=err, ms=graph_ms(torch, fns),
-                            plain_ms=graph_ms(torch, plain, replays=5 if L > 1024 else 15),
-                            bound_ms=b_s[0], bound_by=b_s[1], library_ms=None,
-                            bytes=nbytes, ops=7 * n * NS)
-            log(f"kernels: mamba_scan {label} Bt={Bt} L={L} Dm={DI} N={NS} {dtype} "
-                f"{out[key]}")
-            del sets
+            for dtype in (torch.float32, torch.bfloat16):
+                s = scan_inputs(torch, gen, dev, Bt, L, dtype, Dm=Dm, N=N)
+                for start in (None, s[6]):
+                    err = max(err, scan_check(torch, ms, s, start, f"Dm={Dm} L={L} N={N}"))
+            log(f"kernels: mamba_scan Bt={Bt} L={L} Dm={Dm} N={N} fp32 and bf16, with and "
+                f"without h0: held (max |err| {err:.3g})")
+    # B and C split from one projection at batch 1 are contiguous views at an
+    # offset: the kernel reads them as float4, so the wrapper refuses one
+    # that is not 16-byte aligned and ops.mamba_scan hands it a copy.
+    x, dt, A, Bm, Cm, Dv, h0 = scan_inputs(torch, gen, dev, 1, 1, torch.float32)
+    off = torch.empty(Bm.numel() + 1, device=dev)[1:].view_as(Bm).copy_(Bm)
+    try:
+        ms.mamba_scan(x, dt, A, off, Cm, Dv, h0)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused, "mamba_scan: a B off a 16-byte boundary must be refused")
+    y_o, h_o = ops.mamba_scan(x, dt, A, off, Cm, Dv, h0)
+    y_a, h_a = ms.mamba_scan(x, dt, A, Bm, Cm, Dv, h0)
+    torch.cuda.synchronize()
+    require(torch.equal(y_o, y_a) and torch.equal(h_o, h_a),
+            "ops.mamba_scan on an unaligned B differs from the aligned call")
+    log("kernels: mamba_scan refuses an unaligned B; ops.mamba_scan copies it")
     torch.cuda.empty_cache()
     return out
 

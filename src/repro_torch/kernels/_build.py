@@ -41,7 +41,7 @@ SIGNATURES = {
     "frontier_hop_launch": [P, P, P, P, P, P, P, P, P, P, P,
                             LL, I, I, I, I, I, P],
     "flat_topk_launch": [P, P, P, P, P, P, P, P, P, P,
-                         LL, I, I, I, I, I, P],
+                         LL, I, I, I, I, P],
     "mamba_scan_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
 }
 

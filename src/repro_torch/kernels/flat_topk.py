@@ -11,15 +11,25 @@ query's (query category < 0 = wildcard). The result is the best
 oracle ``ref.flat_topk_masked_ref`` would say 0).
 
 Bound on the H100: bytes. At N = 1,048,576 x 384 the fp32 table is
-1.61 GB (int8: 0.40 GB plus 4 MB of scales), and every query of a batch
-shares one pass over it. The TPU kernel streamed the table through a
-sequential grid and carried the running best in VMEM scratch; Hopper's
-blocks run in no order, so the scan is two kernels: pass 1 gives each
-block a chunk of ``block_n`` rows and a tile of 8 queries held in shared
-memory, scores each row against the whole tile from one 16-byte-per-lane
-row load (fp32 FMA, no TF32), skips rows that no query of the tile can
-take (invalid, or of a category none asks for), and writes one partial
-per (chunk, query); pass 2 reduces the partials.
+1.61 GB (int8: 0.40 GB plus 4 MB of scales), every query of a batch
+shares one pass over the rows some query wants, and every row's valid
+flag is read (its category only when it is valid). The TPU kernel
+streamed the table through a sequential grid and carried the running
+best in VMEM scratch; Hopper's blocks run in no order, so the scan is
+two kernels. Pass 1 runs ``ceil(N / block_n)`` blocks of 4 warps, each
+block one tile of 8 queries in shared memory (wider than d = 384, a row
+is walked in slices of 384 and the queries are read from global memory),
+and deals the rows out in groups of 32 over every warp
+of the grid, so a table filled from slot 0, as ``FlatIndex`` fills it,
+is spread over the whole card. A warp reads 32 rows' flags at a time,
+builds each row's 8-bit mask of the queries that want it, and scores
+its wanted rows four at a time, 8 lanes a row, in increasing order, with
+the next four rows' loads in flight; it multiplies only the queries one
+of the four rows wants (fp32 FMA, no TF32; int8 rows made fp32 exactly,
+scaled after the dot), and a transposed butterfly over the 8 lanes sums
+all 8 queries' partials. Each block writes one partial per query; pass 2
+reduces them. Scores sum in another order than ``gather_scores``
+(within 1e-5 of the plain version).
 """
 
 from __future__ import annotations
@@ -96,7 +106,7 @@ def flat_topk(table: torch.Tensor, valid: torch.Tensor, queries: torch.Tensor,
         None if scales is None else scales.data_ptr(),
         queries.data_ptr(), query_categories.data_ptr(),
         part_s.data_ptr(), part_i.data_ptr(), score.data_ptr(), idx.data_ptr(),
-        N, d, B, int(scales is not None), block_n, n_chunks,
+        N, d, B, int(scales is not None), n_chunks,
         _build.stream(dev))
     _build.check(err, "flat_topk")
     flat_topk.launches += 1

@@ -7,14 +7,20 @@ Mamba layer of every prefill and decode step.
 
 Bound on the H100: bytes. At the serve prefill shape (Bt = 8, L = 64,
 Dm = 8192, N = 16) the call moves ~38 MB (x and dt in, y out, B and C, the
-state out) and takes 67 M ``exp``s, ~11 µs and ~17 µs on the SFUs; a
-decode step (L = 1) is launch latency. The TPU kernel walks L over a
-sequential grid with the state in VMEM; here one block owns 16 channels of
-one sequence for the whole of L, one lane per state element in a
-register, so nothing of size (Bt, L, Dm, N) is materialized (the
-reference's jnp path builds (B, L, Dm, N) fp32 ``dA`` and ``dBx``). Chunks
-of 64 steps of x, dt, B and C are staged in shared memory, and y leaves
-through it as coalesced rows.
+state out), ~11 µs, and takes 67 M ``exp``s, ~16 µs on the SFUs (16 a
+clock per SM), which are the floor of a long scan; a decode step (L = 1)
+is launch latency. The TPU kernel walks L over a sequential grid with
+the state in VMEM; here one block of 128 threads owns 32 channels (N =
+16; 64 for N = 8) of one sequence for the whole of L, each lane 4 state
+elements of one channel in registers, so nothing of size (Bt, L, Dm, N)
+is materialized (the reference's jnp path builds (B, L, Dm, N) fp32
+``dA`` and ``dBx``). A step is one ``ex2`` of a pre-scaled A per state
+element, an FMA for h and one for h·C, and a lane's partial of y goes to
+shared memory, so the unrolled walk has no shuffle; chunks of 32 steps of
+x, dt, B and C are staged in shared memory with the next chunk's loads in
+flight, and y is summed from the partials and written as coalesced rows.
+L = 1 takes a second kernel that stages nothing. y sums its N terms in
+another order than the plain version (each lane's 4, then across lanes).
 
 Beyond the TPU kernel: an optional initial state ``h0`` (the oracle has
 it; a decode step needs it), and ``h_out``, which may be ``h0`` itself, so
@@ -42,7 +48,8 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tens
     D (Dm,) and h0 (Bt, Dm, N) fp32 -> (y (Bt, L, Dm) in x's dtype, h_final
     (Bt, Dm, N) fp32). ``h_out`` (may alias ``h0``) receives h_final in
     place and is returned. A CPU x takes the plain version; a CUDA x
-    launches the kernel (contiguous tensors, N in {8, 16}, L ≥ 1)."""
+    launches the kernel (contiguous tensors, A, B, C, h0 and h_out 16-byte
+    aligned, N in {8, 16}, L ≥ 1)."""
     Bt, L, Dm = x.shape
     N = A.shape[1]
     if h_out is not None and (h_out.shape != (Bt, Dm, N) or h_out.dtype != torch.float32):
@@ -62,6 +69,9 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tens
             or (h0 is not None and h0.shape != (Bt, Dm, N))):
         raise ValueError("mamba_scan: shapes must be x, dt (Bt, L, Dm); A (Dm, N); "
                          "B, C (Bt, L, N); D (Dm,); h0 (Bt, Dm, N)")
+    if any(t.data_ptr() % 16 for t in (A, B, C, h0, h_out) if t is not None):
+        raise ValueError("mamba_scan: A, B, C, h0 and h_out must be 16-byte aligned "
+                         "(the kernel reads them as float4)")
     y = torch.empty_like(x)
     h = h_out if h_out is not None else torch.empty((Bt, Dm, N), dtype=torch.float32,
                                                     device=x.device)

@@ -33,6 +33,13 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32).contiguous()
 
 
+def _f32_16(t: torch.Tensor) -> torch.Tensor:
+    """_f32, copied when its start is not 16-byte aligned (a contiguous
+    slice, such as B and C split from one projection at batch 1)."""
+    t = _f32(t)
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def cache_topk(table: torch.Tensor, valid: torch.Tensor, queries: torch.Tensor,
                categories: torch.Tensor | None = None,
                query_categories: torch.Tensor | None = None,
@@ -151,8 +158,8 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tens
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Selective scan: x, dt (Bt, L, Dm); A (Dm, N); B, C (Bt, L, N);
     D (Dm,); h0 (Bt, Dm, N) or None (zeros) -> (y like x, h_final fp32).
-    Any L ≥ 1, nothing padded. ``h_out`` (contiguous fp32, may be ``h0``
-    itself) receives h_final in place: a decode step updates the layer's
+    Any L ≥ 1, nothing padded. ``h_out`` (contiguous fp32, 16-byte
+    aligned as h0, may be ``h0`` itself) receives h_final in place: a decode step updates the layer's
     cached state without a copy."""
-    return _ms.mamba_scan(x.contiguous(), _f32(dt), _f32(A), _f32(B), _f32(C), _f32(D),
-                          None if h0 is None else _f32(h0), h_out=h_out)
+    return _ms.mamba_scan(x.contiguous(), _f32(dt), _f32_16(A), _f32_16(B), _f32_16(C),
+                          _f32(D), None if h0 is None else _f32(h0), h_out=h_out)

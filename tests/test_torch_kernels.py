@@ -148,6 +148,50 @@ def test_cache_topk_no_match_gives_minus_one(rng):
     assert (N(empty[1]) == -1).all()
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("quant", [False, True])
+def test_flat_topk_ties_lowest_index_wins(rng, quant, masked):
+    """Exact ties across block_n chunks: each query's own direction is
+    planted at several rows (the same chunk, the next 32-row group, later
+    chunks). The Pallas kernel, the reference oracle, the port's oracle
+    and its wrapper all pick the lowest copy; where no row has the query's
+    category the kernels say -1 and the argmax oracles 0."""
+    N_, d, B, block = 1024, 128, 8, 128
+    offsets = np.array([0, 3, 32, 128, 300, 640])
+    table = _unit_rows(rng, N_, d)
+    valid = rng.random(N_) > 0.2
+    cats = rng.integers(0, 4, N_).astype(np.int32)
+    q = _unit_rows(rng, B, d)
+    qc = np.array([-1, 0, 1, 2, 3, 0, 1, 9], np.int32)      # 9: no such rows
+    bases = 11 * np.arange(B) + 1
+    for b in range(B):
+        rows = bases[b] + offsets
+        table[rows] = q[b]
+        valid[rows] = True
+        cats[rows] = qc[b] if 0 <= qc[b] < 4 else b % 4
+    table, scales = quantize_rows(table) if quant else (table, None)
+    js = None if scales is None else J(scales)
+    tsc = None if scales is None else T(scales)
+    if masked:
+        kc, kqc = cats, qc
+        want = np.where(qc == 9, -1, bases)
+    else:
+        kc, kqc = np.full(N_, -1, np.int32), np.full(B, -1, np.int32)
+        want = bases
+    rs, ri = jref.flat_topk_masked_ref(J(table), J(valid), J(q), J(kc), J(kqc), js)
+    ts, ti = ref.flat_topk_masked_ref(T(table), T(valid), T(q), T(kc), T(kqc), tsc)
+    assert np.array_equal(N(ri), np.maximum(want, 0))
+    assert np.array_equal(N(ti), N(ri))
+    _close(ts, rs)
+    cat_args = (J(cats), J(qc)) if masked else (None, None)
+    ks, ki = pallas_flat_topk(J(table), J(valid), J(q), *cat_args, js, block_n=block,
+                              interpret=True)
+    tcat = (T(cats), T(qc)) if masked else (None, None)
+    ws, wi = tft.flat_topk(T(table), T(valid), T(q), *tcat, tsc, block_n=block)
+    assert np.array_equal(N(ki), want) and np.array_equal(N(wi), want)
+    _close(ws, ks)
+
+
 def test_category_args_must_travel_together(rng):
     table = T(_unit_rows(rng, 256, 128))
     valid = torch.ones(256, dtype=torch.bool)

@@ -142,6 +142,30 @@ def test_mamba_scan_refuses_off_cpu_and_bad_shapes():
                        h_out=torch.zeros(1, 8, 8))
 
 
+def test_ops_mamba_scan_aligns_split_views(rng, monkeypatch):
+    """B and C split from one projection at batch 1 are contiguous views at
+    an offset; the kernel reads them as float4, so ``ops.mamba_scan`` hands
+    the wrapper 16-byte aligned copies, and the result is the reference's."""
+    x, dt, A, B, C, D = _scan_inputs(rng, 1, 1, 32, 16)
+    proj = T(np.concatenate([rng.standard_normal((1, 1, 1)).astype(np.float32), B, C],
+                            axis=-1))
+    _, Bv, Cv = proj.split([1, 16, 16], dim=-1)
+    assert Bv.is_contiguous() and Bv.data_ptr() % 16 and Cv.data_ptr() % 16
+    seen = []
+    real = tms.mamba_scan
+
+    def spy(*args, **kw):
+        seen.extend(args[2:5])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tms, "mamba_scan", spy)
+    got_y, got_h = ops.mamba_scan(T(x), T(dt), T(A), Bv, Cv, T(D))
+    assert all(t.data_ptr() % 16 == 0 for t in seen)
+    want_y, want_h = jref.mamba_scan_ref(*map(jnp.asarray, (x, dt, A, B, C, D)))
+    np.testing.assert_allclose(F32(got_y), F32(want_y), rtol=ATOL, atol=ATOL)
+    np.testing.assert_allclose(F32(got_h), F32(want_h), rtol=ATOL, atol=ATOL)
+
+
 # ---------------------------------------------------------------- block (c)
 def _ref_params(dtype="float32", seed=0, **kw):
     jcfg = jget_config(ARCH).reduced(dtype=dtype, **kw)
