@@ -11,7 +11,13 @@ Phases (any failure exits non-zero and prints no result):
 1. build   — compile ``src/repro_torch/csrc/*.cu`` (one nvcc per source);
 2. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes: the cache kernels in fp32 and int8
-             (flat_topk also at the main path's occupancy, a 3,000-row
+             (frontier_hop also with every query done, with one live
+             candidate beside an empty neighbor row, at int8 d 388 (4-byte
+             copies) and at d 1,024 with M 64 (chunks through two
+             buffers), each also held bit for bit against gather_scores on
+             its candidate ids; scatter_rows as one flush launch over the
+             hnsw fp32 and int8 table sets at R 8 and 64, timed beside one
+             launch per table; flat_topk also at the main path's occupancy, a 3,000-row
              valid prefix of 1,048,576, and with exact ties across groups,
              warps, blocks and chunks, the lowest index held equal, at d
              384 and at 128, 256, 512, 1,024 and 12,288 on 4,096 rows), the
@@ -32,7 +38,8 @@ Phases (any failure exits non-zero and prints no result):
 4. main    — ``SemanticCache`` at capacity 1,048,576 for {hnsw, flat} x
              {float32, int8}, serving Table-1 traffic in batches of 8
              (lookup_batch, then insert_batch of the misses); every kernel
-             the path uses must have launched;
+             the path uses must have launched, scatter_rows exactly once
+             per delta flush;
 5. parity  — the same traffic at capacity 16,384, card against CPU: equal
              decisions, except queries within 1e-5 of their τ;
 6. serve   — ``launch.serve.run_serving``: 256 Table-1 requests through
@@ -226,6 +233,195 @@ def flat_topk_ties(torch, ft, gen, dev, quantize, d=D, n=TIE_N, offsets=TIE_OFFS
         f"int8, masked and unmasked: lowest index held")
 
 
+def hold_hop(torch, fh, gs, table, nbrs, meta, variant, scales, what: str) -> float:
+    """One frontier_hop call against its plain version (ids equal, scores
+    within SCORE_ATOL) and against gather_scores on its own candidate ids
+    (the shared dot: routing scores bit for bit). Returns the largest
+    score error."""
+    fr, q, qc, done = variant[:4]
+    ids_k, route_k, res_k = fh.frontier_hop(table, nbrs, meta, fr, q, qc, done, scales)
+    ids_p, route_p, res_p = fh.frontier_hop_plain(table, nbrs, meta, fr, q, qc, done,
+                                                  scales)
+    torch.cuda.synchronize()
+    require(torch.equal(ids_k, ids_p), f"frontier_hop {what}: ids differ")
+    err = max(max_err(route_k, route_p, torch), max_err(res_k, res_p, torch))
+    require(err <= SCORE_ATOL, f"frontier_hop {what}: err {err}")
+    require(torch.equal(gs.gather_scores(table, ids_k, q, scales), route_k),
+            f"gather_scores and frontier_hop differ ({what})")
+    earlier = fh.frontier_hop_serial(table, nbrs, meta, fr, q, qc, done, scales)
+    require(all(torch.equal(x, y) for x, y in zip(earlier, (ids_k, route_k, res_k))),
+            f"frontier_hop and its earlier design differ ({what})")
+    return err
+
+
+def time_hop(torch, fh, table, nbrs, meta, variants, scales, err) -> dict:
+    """frontier_hop's numbers over ``variants``: kernel, earlier design
+    (``frontier_hop_serial``) and plain times, and the bound from this
+    data (each unique live candidate row and its meta word, the neighbor
+    rows of live frontier lanes, the frontier, queries, categories, done
+    flags and the three outputs; 2·d operations per live candidate).
+    ``gather_ms``, for the log only, is one ``index_select`` of the same
+    live candidate rows: what PyTorch's own gather of the rows the hop
+    must read costs (it also writes them out)."""
+    d, M = table.shape[1], nbrs.shape[1]
+    row_b = d * 4 if scales is None else d + 4
+    nbytes, ops, rows = [], [], []
+    for fr, q, qc, done in (v[:4] for v in variants):
+        ids, _, _ = fh.frontier_hop_plain(table, nbrs, meta, fr, q, qc, done, scales)
+        live = ids[ids >= 0]
+        rows.append(live.long())
+        live_fr = fr[(fr >= 0) & (done[:, None] == 0)]
+        nbytes.append(live.unique().numel() * (row_b + 4) + live_fr.unique().numel() * M * 4
+                      + fr.numel() * 4 + q.numel() * 4 + 2 * q.shape[0] * 4
+                      + 3 * ids.numel() * 4)
+        ops.append(2 * d * live.numel())
+    b_hop = bound(statistics.mean(nbytes), statistics.mean(ops))
+    fns = [lambda v=v: fh.frontier_hop(table, nbrs, meta, *v[:4], scales) for v in variants]
+    plain = [lambda v=v: fh.frontier_hop_plain(table, nbrs, meta, *v[:4], scales)
+             for v in variants]
+    earlier = [lambda v=v: fh.frontier_hop_serial(table, nbrs, meta, *v[:4], scales)
+               for v in variants]
+    return dict(max_abs_err=err, ms=graph_ms(torch, fns), earlier_ms=graph_ms(torch, earlier),
+                plain_ms=graph_ms(torch, plain),
+                bound_ms=b_hop[0], bound_by=b_hop[1], library_ms=None,
+                bytes=statistics.mean(nbytes),
+                gather_ms=graph_ms(torch, [lambda r=r: table.index_select(0, r)
+                                           for r in rows]))
+
+
+def hop_dead_lanes(torch, fh, gs, table, nbrs, meta, variants, scales, dtype) -> None:
+    """The mbarrier byte counts at their edges, on the main path's table:
+    every query done (no block loads a row), and one live candidate in the
+    whole hop beside a live frontier lane whose neighbors are all INVALID
+    (a stage of zero bytes)."""
+    fr, q, qc, done, _ = variants[0]
+    dead = (fr, q, qc, torch.ones_like(done))
+    hold_hop(torch, fh, gs, table, nbrs, meta, dead, scales, f"{dtype} all queries done")
+    one, empty = int(fr[0, 0]), int(fr[1, 0])
+    nb = nbrs.clone()
+    nb[one] = -1
+    nb[one, 5] = int(nbrs[one].clamp(min=0).max())
+    nb[empty] = -1
+    lanes = torch.full_like(fr, -1)
+    lanes[0, 0], lanes[1, 3] = one, empty
+    hold_hop(torch, fh, gs, table, nb, meta, (lanes, q, qc, torch.zeros_like(done)), scales,
+             f"{dtype} one live candidate")
+    dead_ms = graph_ms(torch, [lambda: fh.frontier_hop(table, nbrs, meta, *dead, scales)])
+    log(f"kernels: frontier_hop {dtype}: all queries done, and one live candidate beside "
+        f"an empty neighbor row: held; all done (no row loaded) {dead_ms:.6f} ms")
+
+
+# Shapes that take the hop kernel's other staging paths: (label, N, d, M, F,
+# int8). int8 d 388 rows are not 16-byte multiples (4-byte copies); d 1,024
+# with M 64 walks 11 chunks (fp32) or 3 (int8) through two buffers.
+HOP_STAGING = (("int8_d388", 16_384, 388, 32, 32, True),
+               ("float32_d1024_m64", 16_384, 1_024, 64, 8, False),
+               ("int8_d1024_m64", 16_384, 1_024, 64, 8, True))
+
+
+def hop_staging_paths(torch, fh, gs, gen, dev, quantize) -> dict:
+    """frontier_hop on HOP_STAGING's shapes (frontier lanes padded, one
+    query done, tombstones and categories as on the main path): held
+    against its plain version and gather_scores, and timed."""
+    from repro_torch.kernels.ref import TOMBSTONE
+    out = {}
+    for label, n, d, m, f, int8 in HOP_STAGING:
+        table = unit_rows(torch, gen, n, d, dev)
+        scales = None
+        if int8:
+            table, scales = quantize(table)
+        nbrs = torch.randint(0, n, (n, m), generator=gen, device=dev, dtype=torch.int32)
+        nbrs[torch.rand((n, m), generator=gen, device=dev) < 0.1] = -1
+        valid = torch.rand(n, generator=gen, device=dev) > 0.1
+        cats = torch.randint(0, 7, (n,), generator=gen, device=dev, dtype=torch.int32)
+        meta = torch.where(valid, cats, TOMBSTONE).to(torch.int32)
+        variants = []
+        for v in range(4):
+            fr = torch.randint(0, n, (B, f), generator=gen, device=dev, dtype=torch.int32)
+            fr[:, f - 2:] = -1
+            done = torch.zeros(B, dtype=torch.int32, device=dev)
+            done[v % B] = 1
+            variants.append((fr, unit_rows(torch, gen, B, d, dev),
+                             torch.tensor([-1, 0, 1, 2, 3, 4, 5, 6], dtype=torch.int32,
+                                          device=dev), done))
+        plan = fh._stage_plan(d, m, table.element_size())
+        err = max(hold_hop(torch, fh, gs, table, nbrs, meta, v, scales, label)
+                  for v in variants)
+        out[("frontier_hop", label)] = time_hop(torch, fh, table, nbrs, meta, variants,
+                                                scales, err)
+        log(f"kernels: frontier_hop {label} N={n} B={B} F={f} M={m} ({plan['copy']} copies, "
+            f"{plan['chunks']} chunks of {plan['chunk']} rows, {plan['smem_bytes']} bytes of "
+            f"shared memory): {out[('frontier_hop', label)]}")
+    return out
+
+
+# The resident table sets of one delta flush, by index kind and dtype.
+FLUSH_SETS = {"hnsw_float32": ("emb_f32", "neighbors", "valid", "category", "inserted"),
+              "hnsw_int8": ("emb_i8", "scale", "neighbors", "valid", "category",
+                            "inserted")}
+
+
+def rand_table(torch, gen, dev, dtype, shape):
+    if dtype == torch.bool:
+        return torch.rand(shape, generator=gen, device=dev) > 0.5
+    if dtype.is_floating_point:
+        return torch.randn(shape, generator=gen, device=dev)
+    return torch.randint(-100, 100, shape, generator=gen, device=dev).to(dtype)
+
+
+def check_flush(torch, su, gen, dev, tables) -> dict:
+    """scatter_flush (one launch for every table of a flush, from one
+    packed buffer) over FLUSH_SETS at R 8 and 64, with a bucketing
+    duplicate: bit-exact against the per-table plain version, then timed
+    beside the per-table kernel (T launches), its plain version and T
+    ``index_copy_`` calls (the library column). The bound counts the row
+    ids once and every table's R rows read from the staged buffer and
+    written into the table."""
+    base = {k: rand_table(torch, gen, dev, dt, shape) for k, (dt, shape) in tables.items()}
+    out = {}
+    for label, names in FLUSH_SETS.items():
+        tabs = [base[k] for k in names]
+        for R in (8, 64):
+            flushes = []
+            for _ in range(4):
+                rows = torch.randperm(HOP_N, generator=gen, device=dev)[:R].to(torch.int32)
+                rows[-1] = rows[0]                      # bucketing duplicate
+                vals = [rand_table(torch, gen, dev, tables[k][0], (R,) + tables[k][1][1:])
+                        for k in names]
+                for v in vals:
+                    v[-1] = v[0]
+                packed = torch.from_numpy(su.pack_flush(
+                    rows.cpu().numpy(), [v.cpu().numpy() for v in vals])).to(dev)
+                flushes.append((rows, rows.long(), vals, packed))
+            for rows, _, vals, packed in flushes:
+                got = [t.clone() for t in tabs]
+                su.scatter_flush(got, packed, R)
+                for k, g, t, v in zip(names, got, tabs, vals):
+                    require(torch.equal(g, su.scatter_rows_plain(t.clone(), rows, v)),
+                            f"scatter_flush {label} {k} R={R}: not bit-exact")
+            nbytes = 4 * R + sum(2 * R * t[0].numel() * t.element_size() for t in tabs)
+            b_sc = bound(nbytes, 0)
+            tgt = [t.clone() for t in tabs]
+            row = dict(
+                max_abs_err=0.0,
+                ms=graph_ms(torch, [lambda f=f: su.scatter_flush(tgt, f[3], R)
+                                    for f in flushes]),
+                per_table_ms=graph_ms(torch, [
+                    lambda f=f: [su.scatter_rows(t, f[0], v) for t, v in zip(tgt, f[2])]
+                    for f in flushes]),
+                plain_ms=graph_ms(torch, [lambda f=f: su.scatter_flush_plain(tgt, f[3], R)
+                                          for f in flushes]),
+                library_ms=graph_ms(torch, [
+                    lambda f=f: [t.index_copy_(0, f[1], v) for t, v in zip(tgt, f[2])]
+                    for f in flushes]),
+                bound_ms=b_sc[0], bound_by=b_sc[1], bytes=nbytes, tables=len(tabs))
+            key = (("scatter_rows", "float32") if (label, R) == ("hnsw_float32", 64)
+                   else ("scatter_rows", label, f"R{R}"))
+            out[key] = row
+            log(f"kernels: scatter_rows flush {label} R={R} ({len(tabs)} tables): {row}")
+    return out
+
+
 def check_kernels(torch, dev) -> dict:
     from repro_torch.core.hnsw import quantize_rows
     from repro_torch.kernels import flat_topk as ft
@@ -299,16 +495,8 @@ def check_kernels(torch, dev) -> dict:
         require(err_gm <= SCORE_ATOL, f"gather_scores_masked {dtype}: err {err_gm}")
         # This run's data: live lanes of every variant, unique rows read.
         row_b = D * 4 if scales is None else D + 4
-        hop_bytes, hop_ops, g_bytes, g_ops, m_bytes, m_ops = [], [], [], [], [], []
+        g_bytes, g_ops, m_bytes, m_ops = [], [], [], []
         for fr, q, qc, done, idx in variants:
-            ids, _, _ = fh.frontier_hop_plain(table, nbrs, meta, fr, q, qc, done, scales)
-            live = ids[ids >= 0]
-            live_fr = fr[(fr >= 0) & (done[:, None] == 0)]
-            hop_bytes.append(live.unique().numel() * (row_b + 4)
-                             + live_fr.unique().numel() * M * 4
-                             + fr.numel() * 4 + q.numel() * 4 + 2 * B * 4
-                             + 3 * ids.numel() * 4)
-            hop_ops.append(2 * D * live.numel())
             gl = idx[idx >= 0]
             g_bytes.append(gl.unique().numel() * row_b + idx.numel() * 8
                            + q.numel() * 4)
@@ -319,11 +507,6 @@ def check_kernels(torch, dev) -> dict:
             m_bytes.append(ml.unique().numel() * row_b + gl.unique().numel() * 4
                            + idx.numel() * 8 + q.numel() * 4 + B * 4)
             m_ops.append(2 * D * ml.numel())
-        hop_fns = [lambda v=v: fh.frontier_hop(table, nbrs, meta, v[0], v[1], v[2],
-                                               v[3], scales) for v in variants]
-        hop_plain = [lambda v=v: fh.frontier_hop_plain(table, nbrs, meta, v[0], v[1],
-                                                       v[2], v[3], scales)
-                     for v in variants]
         g_fns = [lambda v=v: gs.gather_scores(table, v[4], v[1], scales)
                  for v in variants]
         g_plain = [lambda v=v: gs.gather_scores_plain(table, v[4], v[1], scales)
@@ -332,14 +515,10 @@ def check_kernels(torch, dev) -> dict:
                  for v in variants]
         m_plain = [lambda v=v: gs.gather_scores_masked_plain(table, v[4], v[1], cats, v[2],
                                                              scales) for v in variants]
-        b_hop = bound(statistics.mean(hop_bytes), statistics.mean(hop_ops))
         b_g = bound(statistics.mean(g_bytes), statistics.mean(g_ops))
         b_m = bound(statistics.mean(m_bytes), statistics.mean(m_ops))
-        out[("frontier_hop", dtype)] = dict(
-            max_abs_err=err_fh, ms=graph_ms(torch, hop_fns),
-            plain_ms=graph_ms(torch, hop_plain), bound_ms=b_hop[0],
-            bound_by=b_hop[1], library_ms=None,
-            bytes=statistics.mean(hop_bytes))
+        out[("frontier_hop", dtype)] = time_hop(torch, fh, table, nbrs, meta, variants,
+                                                scales, err_fh)
         out[("gather_scores", dtype)] = dict(
             max_abs_err=err_gs, ms=graph_ms(torch, g_fns),
             plain_ms=graph_ms(torch, g_plain), bound_ms=b_g[0],
@@ -350,7 +529,21 @@ def check_kernels(torch, dev) -> dict:
             bound_by=b_m[1], library_ms=None, bytes=statistics.mean(m_bytes))
         for name in ("frontier_hop", "gather_scores", "gather_scores_masked"):
             log(f"kernels: {name} {dtype} {out[(name, dtype)]}")
+        hop_dead_lanes(torch, fh, gs, table, nbrs, meta, variants, scales, dtype)
+        # the main path's occupancy: its cache holds < SPARSE_ROWS entries,
+        # so every frontier and neighbor id falls in the first rows
+        near = [(torch.where(v[0] >= 0, v[0] % SPARSE_ROWS, -1), *v[1:4]) for v in variants]
+        nb = nbrs % SPARSE_ROWS
+        nb[nbrs < 0] = -1
+        err = max(hold_hop(torch, fh, gs, table, nb, meta, v, scales, f"{dtype} prefix")
+                  for v in near)
+        out[("frontier_hop", "prefix", dtype)] = time_hop(torch, fh, table, nb, meta, near,
+                                                          scales, err)
+        log(f"kernels: frontier_hop {dtype}, ids in the first {SPARSE_ROWS} rows "
+            f"{out[('frontier_hop', 'prefix', dtype)]}")
     del emb, emb_q, emb_s, nbrs, valid, cats, meta, variants
+    torch.cuda.empty_cache()
+    out.update(hop_staging_paths(torch, fh, gs, gen, dev, quantize))
     torch.cuda.empty_cache()
 
     # -- flat_topk at N=1,048,576, B=8, with categories -----------------
@@ -405,53 +598,15 @@ def check_kernels(torch, dev) -> dict:
         flat_topk_ties(torch, ft, gen, dev, quantize, d, n, offsets, stride)
     torch.cuda.empty_cache()
 
-    # -- scatter_rows: R in {8, 64} over every resident table ------------
+    # -- scatter_rows: one flush launch over every resident table ---------
     tables = {
         "emb_f32": (torch.float32, (HOP_N, D)), "emb_i8": (torch.int8, (HOP_N, D)),
         "scale": (torch.float32, (HOP_N,)), "neighbors": (torch.int32, (HOP_N, M)),
         "valid": (torch.bool, (HOP_N,)), "category": (torch.int32, (HOP_N,)),
         "inserted": (torch.float32, (HOP_N,)),
     }
-
-    def rand_table(dtype, shape):
-        if dtype == torch.bool:
-            return torch.rand(shape, generator=gen, device=dev) > 0.5
-        if dtype.is_floating_point:
-            return torch.randn(shape, generator=gen, device=dev)
-        return torch.randint(-100, 100, shape, generator=gen, device=dev).to(dtype)
-
-    from repro_torch.kernels import ops
-    sc_err, timing = 0.0, {}
-    for name, (dtype, shape) in tables.items():
-        base = rand_table(dtype, shape)
-        for R in (8, 64):
-            rows = torch.randperm(HOP_N, generator=gen, device=dev)[:R].to(torch.int32)
-            rows[-1] = rows[0]                          # bucketing duplicate
-            vals = rand_table(dtype, (R,) + shape[1:])
-            vals[-1] = vals[0]
-            got = ops.scatter_rows(base.clone(), rows, vals)
-            want = su.scatter_rows_plain(base.clone(), rows, vals)
-            torch.cuda.synchronize()
-            require(torch.equal(got, want), f"scatter_rows {name} R={R}: not bit-exact")
-            if name == "emb_f32" and R == 64:
-                tgt = base.clone()
-                vsets = []
-                for _ in range(4):
-                    r = torch.randperm(HOP_N, generator=gen, device=dev)[:R]
-                    vsets.append((r.to(torch.int32), r.long(),
-                                  rand_table(dtype, (R,) + shape[1:])))
-                row_b = D * 4
-                b_sc = bound(2 * R * row_b + R * 4, 0)
-                timing = dict(
-                    ms=graph_ms(torch, [lambda v=v: su.scatter_rows(tgt, v[0], v[2])
-                                        for v in vsets]),
-                    plain_ms=graph_ms(torch, [lambda v=v: su.scatter_rows_plain(
-                        tgt, v[0], v[2]) for v in vsets]),
-                    library_ms=graph_ms(torch, [lambda v=v: tgt.index_copy_(0, v[1], v[2])
-                                                for v in vsets]),
-                    bound_ms=b_sc[0], bound_by=b_sc[1], bytes=2 * R * row_b + R * 4)
-    out[("scatter_rows", "float32")] = dict(max_abs_err=sc_err, **timing)
-    log(f"kernels: scatter_rows emb fp32 R=64 {out[('scatter_rows', 'float32')]}")
+    out.update(check_flush(torch, su, gen, dev, tables))
+    log(f"kernels: scatter_rows flush hnsw fp32 R=64 {out[('scatter_rows', 'float32')]}")
     torch.cuda.empty_cache()
     return out
 
@@ -912,7 +1067,8 @@ def check_index(torch) -> None:
                                        np.int32))
                 for slot in rng.choice(100_000, 16, replace=False):
                     idx.remove(int(slot))
-                su.scatter_rows.launches = 0
+                flushes = idx.sync_stats["delta_updates"]
+                su.scatter_flush.launches = 0
             n_hits = 0
             for s in range(0, len(probe), 8):
                 sl = slice(s, s + 8)
@@ -942,8 +1098,11 @@ def check_index(torch) -> None:
                             f"differ on query {s + j}")
                 n_hits += int((k_cls == 2).sum())
             if phase == "after":
-                require(idx.sync_stats["delta_updates"] >= 1, "index: no delta flush")
-                require(su.scatter_rows.launches > 0, "index: flush did not scatter")
+                flushes = idx.sync_stats["delta_updates"] - flushes
+                require(flushes >= 1, "index: no delta flush")
+                require(su.scatter_flush.launches == flushes,
+                        f"index: {su.scatter_flush.launches} scatter launches for "
+                        f"{flushes} delta flushes")
                 t = idx.device_tables()
                 host = idx._host_tables()
                 for k, v in host.items():
@@ -1007,6 +1166,10 @@ def run_main_path(torch, counters, steps: int) -> dict:
                 launches[k] += counts[k]
             for k in uses[kind]:
                 require(counts[k] > 0, f"main {kind}/{dtype}: {k} never launched")
+            flushes = cache.sync_stats["delta_updates"]
+            require(counts["scatter_rows"] == flushes,
+                    f"main {kind}/{dtype}: {counts['scatter_rows']} scatter launches for "
+                    f"{flushes} delta flushes (one launch a flush)")
             require(all(np.isfinite(d[2]) or not d[0] for d in decisions),
                     "main: a hit without a finite score")
             rates = {c: round(st.hit_rate, 4)
@@ -1356,9 +1519,11 @@ def main(argv: list[str]) -> int:
     from repro_torch.kernels.frontier_hop import frontier_hop
     from repro_torch.kernels.gather_scores import gather_scores, gather_scores_masked
     from repro_torch.kernels.mamba_scan import mamba_scan
-    from repro_torch.kernels.scatter_update import scatter_rows
+    from repro_torch.kernels.scatter_update import scatter_flush
+    # scatter_rows's row counts the flush entry's launches: the delta flush
+    # is the path's one caller of that kernel.
     counters = {"frontier_hop": frontier_hop, "gather_scores": gather_scores,
-                "flat_topk": flat_topk, "scatter_rows": scatter_rows,
+                "flat_topk": flat_topk, "scatter_rows": scatter_flush,
                 "gather_scores_masked": gather_scores_masked,
                 "flash_attention": flash_attention, "decode_attention": decode_attention,
                 "mamba_scan": mamba_scan}
@@ -1416,8 +1581,8 @@ def main(argv: list[str]) -> int:
         return 4
 
     launches.update({k: served[arch]["launches"][k] for k, arch in SERVE_KERNELS.items()})
-    fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-              "splits", "chunk", "chunk_ms")
+    fields = ("max_abs_err", "ms", "earlier_ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms", "per_table_ms", "splits", "chunk", "chunk_ms")
     rows = []
     for name, (source, replaces) in KERNELS.items():
         key = (name, *MAIN_KEY.get(name, ("float32",)))

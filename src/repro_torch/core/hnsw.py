@@ -28,8 +28,9 @@ fixpoint test compares positions, so the merge sorts stably
 **Device residency (delta synchronization).** The device tables are
 persistent tensors on ``device``. Every host mutation logs its touched
 rows; ``device_tables()`` writes the log into the tables in place with
-``ops.scatter_rows`` (the ``scatter_rows`` kernel on the card), so a sync
-moves O(delta) bytes. A full upload happens on first use and when the
+``ops.scatter_flush`` (one ``scatter_rows`` kernel launch for every
+table, from one packed upload, on the card), so a sync moves O(delta)
+bytes. A full upload happens on first use and when the
 dirty fraction exceeds the rebuild threshold. ``sync_stats`` counts
 uploads, rows and bytes with the reference's formulas.
 
@@ -149,10 +150,11 @@ def _flush_device_tables(device_tables: dict | None,
         bucket = _bucket_batch(len(rows))
         rows = np.concatenate(
             [rows, np.full(bucket - len(rows), rows[0])]).astype(np.int32)
-        rows_t = _upload(rows, device)
-        for k in host:
-            ops.scatter_rows(device_tables[k], rows_t,
-                             _upload(host[k][rows], device))
+        # One upload (the row ids and every table's rows, packed) and one
+        # launch for every resident table.
+        packed = ops.pack_flush(rows, [host[k][rows] for k in host])
+        ops.scatter_flush([device_tables[k] for k in host],
+                          _upload(packed, device), len(rows))
         sync_stats["delta_updates"] += 1
         sync_stats["rows_synced"] += len(rows)
         sync_stats["bytes_synced"] += len(rows) * row_nbytes

@@ -29,7 +29,7 @@ FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: name -> argument types (all return int = cudaError_t).
 SIGNATURES = {
-    "scatter_rows_launch": [P, P, P, LL, LL, LL, I, P],
+    "scatter_rows_launch": [P, LL, I, P, P, P, P, P, P],
     "gather_scores_launch": [P, P, P, P, P, LL, I, I, I, I, P],
     "gather_scores_masked_launch": [P, P, P, P, P, P, P, LL, I, I, I, I, P],
     "flash_attention_launch": [P, P, P, P, P, I, I, I, I, I, I, I, I, I,
@@ -39,7 +39,7 @@ SIGNATURES = {
     "decode_attention_launch": [P, P, P, P, P, P, P, P, I, I, I, I, I, F, F,
                                 I, I, I, I, P],
     "frontier_hop_launch": [P, P, P, P, P, P, P, P, P, P, P,
-                            LL, I, I, I, I, I, P],
+                            LL, I, I, I, I, I, I, I, P],
     "flat_topk_launch": [P, P, P, P, P, P, P, P, P, P,
                          LL, I, I, I, I, P],
     "mamba_scan_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],

@@ -13,6 +13,8 @@ wrappers' tile sizes and ``interpret`` switch have no counterpart.
 
 from __future__ import annotations
 
+from collections.abc import Sequence
+
 import torch
 
 from repro_torch.kernels import decode_attention as _da
@@ -128,6 +130,23 @@ def scatter_rows(table: torch.Tensor, rows: torch.Tensor,
     else:
         _su.scatter_rows(table, rows, vals)
     return table
+
+
+def scatter_flush(tables: Sequence[torch.Tensor], packed: torch.Tensor,
+                  R: int) -> None:
+    """A whole delta flush in one launch: for every table, write its R
+    staged rows into ``table[rows[r]]`` IN PLACE. ``packed`` is
+    ``pack_flush(rows, [vals, ...])`` on the tables' device (the row ids
+    and every table's rows, uploaded once). Any dtypes, 1-D tables too;
+    the same contract as ``scatter_rows``."""
+    for t in tables:
+        if not t.is_contiguous():
+            raise ValueError("scatter_flush: every table must be contiguous "
+                             "(it is updated in place)")
+    _su.scatter_flush(tables, packed, R)
+
+
+pack_flush = _su.pack_flush
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

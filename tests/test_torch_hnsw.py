@@ -123,29 +123,79 @@ def test_mirror_exact_and_in_place_after_delta_flush(emb_dtype):
 
 @pytest.mark.parametrize("fail_after", [0, 2])
 def test_failed_delta_flush_drops_mirror_and_reraises(monkeypatch, fail_after):
+    """A delta flush that dies (on the first flush, or on a later one after
+    ``fail_after`` successful ones) drops the device mirror, keeps the
+    dirty log and re-raises; the retry rebuilds the mirror exactly."""
     rng = np.random.default_rng(7)
     t = th.HNSWIndex(DIM, 128, params=th.HNSWParams(**_small()), seed=7,
                      device="cpu")
     t.add_batch(_unit(rng, 16), np.zeros(16, np.int32))
     t.device_tables()
-    t.add_batch(_unit(rng, 2), np.ones(2, np.int32))
-    real, calls = ops.scatter_rows, {"n": 0}
+    real, calls = ops.scatter_flush, {"n": 0}
 
-    def dying(dst, rows, vals):
+    def dying(tables, packed, R):
         if calls["n"] >= fail_after:
             raise RuntimeError("injected flush fault")
         calls["n"] += 1
-        return real(dst, rows, vals)
+        return real(tables, packed, R)
 
-    monkeypatch.setattr(ops, "scatter_rows", dying)
+    monkeypatch.setattr(ops, "scatter_flush", dying)
+    for _ in range(fail_after):
+        t.add_batch(_unit(rng, 2), np.ones(2, np.int32))
+        t.device_tables()
+    assert t.sync_stats["delta_updates"] == fail_after
+    t.add_batch(_unit(rng, 2), np.ones(2, np.int32))
     with pytest.raises(RuntimeError, match="injected flush fault"):
         t.device_tables()
     assert t._device is None and t._dirty
-    monkeypatch.setattr(ops, "scatter_rows", real)
+    monkeypatch.setattr(ops, "scatter_flush", real)
     dev = t.device_tables()
     assert t.sync_stats["full_uploads"] == 2
     for k, host in t._host_tables().items():
         assert np.array_equal(dev[k].numpy(), host)
+
+
+@pytest.mark.parametrize("kind", ["hnsw", "flat"])
+@pytest.mark.parametrize("emb_dtype", ["float32", "int8"])
+def test_delta_flush_is_one_flush_call_with_reference_sync_stats(monkeypatch, kind,
+                                                                  emb_dtype):
+    """Every delta flush calls ``ops.scatter_flush`` exactly once for all
+    resident tables (one upload, one launch on the card), the mirror stays
+    exact, and ``sync_stats`` equal the reference index's after the same
+    inserts and removes."""
+    rng = np.random.default_rng(11)
+    if kind == "hnsw":
+        r = jh.HNSWIndex(DIM, 256, params=jh.HNSWParams(**_small(emb_dtype=emb_dtype)),
+                         seed=3)
+        t = th.HNSWIndex(DIM, 256, params=th.HNSWParams(**_small(emb_dtype=emb_dtype)),
+                         seed=3, device="cpu")
+    else:
+        r = jh.FlatIndex(DIM, 256, emb_dtype=emb_dtype)
+        t = th.FlatIndex(DIM, 256, emb_dtype=emb_dtype, device="cpu")
+    real, calls = ops.scatter_flush, []
+
+    def counting(tables, packed, R):
+        calls.append((len(tables), R))
+        return real(tables, packed, R)
+
+    monkeypatch.setattr(ops, "scatter_flush", counting)
+    for idx in (r, t):
+        idx.add_batch(_unit(np.random.default_rng(1), 40), np.zeros(40, np.int32))
+        idx.device_tables()
+    for step in range(4):
+        vecs = _unit(rng, 3)
+        cats = rng.integers(0, 3, 3).astype(np.int32)
+        gone = int(rng.integers(0, 40))
+        for idx in (r, t):
+            idx.add_batch(vecs, cats)
+            idx.remove(gone)
+            idx.device_tables()
+        assert t.sync_stats == r.sync_stats, step
+    assert t.sync_stats["delta_updates"] == 4 == len(calls)
+    assert all(n == len(t._host_tables()) for n, _ in calls)
+    dev = t.device_tables()
+    for k, host in t._host_tables().items():
+        assert np.array_equal(dev[k].numpy(), host), k
 
 
 def test_host_control_plane_draws_the_same_numbers():

@@ -29,6 +29,7 @@ from repro_torch.kernels import flat_topk as tft  # noqa: E402
 from repro_torch.kernels import frontier_hop as tfh  # noqa: E402
 from repro_torch.kernels import gather_scores as tgs  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import scatter_update as su  # noqa: E402
 
 ATOL = 1e-5      # fp32 scores, different summation order
 
@@ -337,6 +338,44 @@ def test_frontier_hop_done_query_is_fully_dead(rng):
             assert (ids[b] >= 0).any()
 
 
+@pytest.mark.parametrize("N_,d,M,quant", [(64, 388, 8, True), (128, 1024, 64, False)])
+def test_frontier_hop_parity_at_staging_edges(rng, N_, d, M, quant):
+    """The shapes that take the card kernel's other staging paths (int8
+    rows of 388 bytes: 4-byte copies; fp32 d 1,024 with M 64: chunks
+    through two buffers) agree with the reference oracle on the CPU."""
+    emb, nbrs, meta, frontier, q, qc, done = _hop_inputs(rng, N_, d, 2, 3, M)
+    scales = None
+    if quant:
+        emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+        emb, scales = quantize_rows(emb)
+    args = (emb, nbrs, meta, frontier, q, qc, done)
+    ri, rr, rs = jref.frontier_hop_ref(*map(J, args), None if scales is None else J(scales))
+    ti, tr, ts = ops.frontier_hop(*map(T, args), None if scales is None else T(scales))
+    assert np.array_equal(N(ti), np.asarray(ri))
+    _close(tr, rr, atol=1e-4)
+    _close(ts, rs, atol=1e-4)
+
+
+@pytest.mark.parametrize("d,M,itemsize,copy,chunks", [
+    (384, 32, 4, "bulk", 1), (384, 32, 1, "bulk", 1), (388, 32, 1, "word", 1),
+    (1024, 64, 4, "bulk", 11), (12288, 32, 4, "bulk", 32)])
+def test_stage_plan(d, M, itemsize, copy, chunks):
+    """The card kernel's staging plan: one bulk stage at the main path's
+    shape (fp32 d 384, M 32: 48 KB of rows and 1.5 KB of query, four blocks
+    an SM), 4-byte copies for int8 rows that are not 16-byte multiples,
+    chunks through two buffers where M rows exceed the budget, and every
+    plan within a block's shared memory."""
+    plan = tfh._stage_plan(d, M, itemsize)
+    assert (plan["copy"], plan["chunks"]) == (copy, chunks)
+    assert plan["slot_bytes"] % 16 == 0 and plan["slot_bytes"] >= d * itemsize
+    assert plan["chunk"] * (plan["chunks"] - 1) < M <= plan["chunk"] * plan["chunks"]
+    assert plan["smem_bytes"] <= tfh.SMEM_LIMIT
+    if chunks == 1:
+        assert plan["chunk"] == M
+    if (d, M, itemsize) == (384, 32, 4):    # four blocks an SM, 1 KB reserved each
+        assert 4 * (plan["smem_bytes"] + 1024) <= 233_472
+
+
 # ---------------------------------------------------------- scatter_update
 @pytest.mark.parametrize("N_,d,R", [(64, 128, 8), (256, 384, 32), (128, 32, 5)])
 def test_scatter_rows_parity(rng, N_, d, R):
@@ -384,6 +423,50 @@ def test_ops_scatter_rows_1d_tables(rng, dtype):
     np.testing.assert_array_equal(N(out), want)
 
 
+def _resident_tables(rng, kind, quant, N_=256, d=128, M0=16):
+    """Host tables as an index holds them: the embedding tier (fp32 rows,
+    or int8 rows and their scales), the level-0 neighbors (hnsw only), and
+    the valid/category/inserted columns."""
+    emb = _unit_rows(rng, N_, d)
+    tabs = {"emb": emb} if not quant else dict(zip(("emb", "scale"), quantize_rows(emb)))
+    if kind == "hnsw":
+        tabs["neighbors"] = rng.integers(-1, N_, (N_, M0)).astype(np.int32)
+    tabs["valid"] = rng.random(N_) > 0.5
+    tabs["category"] = rng.integers(-1, 7, N_).astype(np.int32)
+    tabs["inserted"] = rng.random(N_).astype(np.float32)
+    return tabs
+
+
+@pytest.mark.parametrize("R", [8, 64])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("kind", ["hnsw", "flat"])
+def test_scatter_flush_matches_per_table_scatter(rng, kind, quant, R):
+    """One flush of every resident table from one packed buffer (row ids,
+    then each table's rows, every segment on a 16-byte boundary, the
+    bucketing duplicate included) equals ``scatter_rows_plain`` table by
+    table and the reference's Pallas ``scatter_rows`` (interpret mode)."""
+    host = _resident_tables(rng, kind, quant)
+    N_ = host["emb"].shape[0]
+    rows = rng.choice(N_, R, replace=False).astype(np.int32)
+    rows[-1] = rows[0]
+    vals = {k: v[:R].copy() for k, v in _resident_tables(rng, kind, quant).items()}
+    for v in vals.values():
+        v[-1] = v[0]
+    packed = ops.pack_flush(rows, list(vals.values()))
+    offsets, total = su.flush_layout([v[0].nbytes for v in vals.values()], R)
+    assert packed.dtype == np.uint8 and packed.shape == (total,)
+    assert all(off % 16 == 0 for off in offsets)
+    tables = {k: T(t.copy()) for k, t in host.items()}
+    ops.scatter_flush(list(tables.values()), T(packed), R)
+    for k, t in host.items():
+        want = su.scatter_rows_plain(T(t.copy()), T(rows), T(vals[k]))
+        np.testing.assert_array_equal(N(tables[k]), N(want), err_msg=k)
+        col = (lambda a: a[:, None]) if t.ndim == 1 else (lambda a: a)
+        kern = np.asarray(pallas_scatter_rows(J(col(t)), J(rows), J(col(vals[k])),
+                                              interpret=True))
+        np.testing.assert_array_equal(N(tables[k]), kern.reshape(t.shape), err_msg=k)
+
+
 # ------------------------------------------------- off-CPU tensors: no fallback
 def test_wrappers_raise_off_cpu_instead_of_falling_back():
     """A tensor that is not on the CPU never takes the plain version: a
@@ -405,6 +488,11 @@ def test_wrappers_raise_off_cpu_instead_of_falling_back():
     with pytest.raises(ValueError):
         ops.scatter_rows(table, torch.zeros(2, dtype=torch.int32),
                          torch.empty((2, 8), device=meta))
+    with pytest.raises(ValueError):
+        ops.scatter_flush([table], torch.zeros(128, dtype=torch.uint8), 2)
+    with pytest.raises(ValueError):
+        su.scatter_flush([torch.zeros((16, 8))],
+                         torch.empty(128, dtype=torch.uint8, device=meta), 2)
     with pytest.raises(ValueError):
         ops.hop_scores(table, idx, q, torch.empty(16, dtype=torch.int32, device=meta),
                        i32)
