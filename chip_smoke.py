@@ -37,25 +37,50 @@ Phases (any failure exits non-zero and prints no result):
              the kernel path against the plain path on the card;
 4. main    — ``SemanticCache`` at capacity 1,048,576 for {hnsw, flat} x
              {float32, int8}, serving Table-1 traffic in batches of 8
-             (lookup_batch, then insert_batch of the misses); every kernel
-             the path uses must have launched, scatter_rows exactly once
-             per delta flush;
+             (lookup_batch, then insert_batch of the misses). Each search
+             replays the index's CUDA graph of its batch bucket
+             (``core/graphs.py``; the log's "graphs:" line gives the
+             captures, replays and compilations). Launches are counted
+             where they are made: a wrapper counts the launches that run
+             at its call (a capture's warm-up, an eager call) and records
+             those a capture records; the holder keeps each capture's
+             recorded launches and counts the replays. Both are exact:
+             frontier_hop max_hops times and gather_scores once per warm-up
+             and per search, flat_topk once, scatter_rows once per delta
+             flush (eager, between replays). Then 80 probe queries: the
+             graph's packed result (idx, score, cls, cand, hops, rows)
+             equals bit for bit the eager ``beam_search_classified`` /
+             ``_flat_search_classified`` on the same padded inputs and
+             device tables; and in a profiled window of 10 lookups the
+             port's kernels, counted by name in the trace, are exactly what
+             the replayed graphs recorded;
 5. parity  — the same traffic at capacity 16,384, card against CPU: equal
              decisions, except queries within 1e-5 of their τ;
 6. serve   — ``launch.serve.run_serving``: 256 Table-1 requests through
              the cache (hnsw, fp32, device search) in front of
              llama3.2-3b at full width and depth (seeded random bf16
-             weights), batch 8, prompt 64, 16 new tokens; the attention
-             kernels must have launched. Then the same run in front of
-             falcon-mamba-7b at full width and depth (64 Mamba layers,
-             d_inner 8192): mamba_scan must have launched 64 times per
-             prefill and decode step, and the served, hit and model-token
-             counters must equal llama's (hits depend only on the text).
-             Then each model at full width and 2 layers: decode against
-             prefill, and card against CPU.
+             weights), batch 8, prompt 64, 16 new tokens. Generation
+             replays a prefill graph and 15 times a decode graph per
+             miss-batch size (``serving/engine.py``), timed by CUDA events
+             around the replays. The first replay of every graph runs under
+             the profiler: its trace holds exactly the port's kernels its
+             capture recorded. flash_attention and decode_attention must
+             have launched 28 times per warm-up and per replay of a
+             prefill and a decode graph. Then the same run in
+             front of falcon-mamba-7b at full width and depth (64 Mamba
+             layers, d_inner 8192): mamba_scan 64 times per prefill and
+             decode step, and the served, hit and model-token counters
+             must equal llama's (hits depend only on the text). For each
+             model the graphs' tokens for a batch of 8 and one of 3 must
+             equal the eager prefill/decode_step loop's. Then each model
+             at full width and 2 layers: decode against prefill, and card
+             against CPU.
 
-The last lines are a ``{"kernels": [...]}`` object, the card's name and
-power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
+The last lines are a ``{"kernels": [...]}`` object (``launches``: those
+made at wrapper calls in the run of the kernel's path; ``replay_launches``:
+those its graphs' replays made, each graph's recorded launches times its
+replays), the card's name and power limit from nvidia-smi, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1119,11 +1144,14 @@ def profile_lookups(torch, cache, queries) -> str:
     """Device time of ``lookup_batch`` under torch.profiler: the summed
     self device time of the kernels against the host wall time of the
     same window (the profiler's own host cost included), and the largest
-    kernels by name."""
+    kernels by name. The port's kernels in the trace must be exactly what
+    the search graphs replayed in the window recorded at their capture."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     batches = [queries[s:s + 8] for s in range(0, len(queries), 8)]
+    programs = cache.index.programs
+    before = dict(programs.replays)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1132,6 +1160,11 @@ def profile_lookups(torch, cache, queries) -> str:
                                [q.category for q in part])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    replays = {k: n - before.get(k, 0) for k, n in programs.replays.items()
+               if n != before.get(k, 0)}
+    traced, want = traced_launches(prof), recorded_launches(programs, replays)
+    require(traced == want, f"lookups under the profiler: the trace holds {traced} "
+            f"launches of the port's kernels, the {replays} graph replays recorded {want}")
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
@@ -1142,19 +1175,121 @@ def profile_lookups(torch, cache, queries) -> str:
                       for e in top)
     return (f"{len(batches)} lookup_batch calls: device busy {busy_us / len(batches):.1f} "
             f"us/call of {wall_us / len(batches):.1f} us/call wall under the profiler "
-            f"(idle share {1 - busy_us / wall_us:.3f}); top kernels: {names}")
+            f"(idle share {1 - busy_us / wall_us:.3f}); top kernels: {names}; the port's "
+            f"kernels in the trace {({k: n for k, n in traced.items() if n})} equal "
+            f"what the {replays} graph replays recorded at capture")
 
 
-def run_main_path(torch, counters, steps: int) -> dict:
+# The CUDA kernel that each wrapper a graph may hold launches once a call,
+# by its name in a profiler trace (flat_topk's reduce and decode_attention's
+# combine kernel launch beside it and are not counted).
+TRACE_KERNELS = {"frontier_hop": ("frontier_hop_kernel",),
+                 "gather_scores": ("gather_scores_kernel",),
+                 "flat_topk": ("flat_topk_partial_kernel",),
+                 "flash_attention": ("flash_wgmma_kernel", "flash_kernel"),
+                 "decode_attention": ("decode_kernel",),
+                 "mamba_scan": ("mamba_scan_kernel", "mamba_step_kernel")}
+
+
+def traced_launches(prof) -> dict:
+    """The port's kernels that ran on the card in a torch.profiler window,
+    counted by name (CUPTI records every kernel of a graph replay), by
+    wrapper of TRACE_KERNELS."""
+    import re
+
+    from torch.autograd import DeviceType
+    pats = {w: re.compile("|".join(rf"(?<!\w){n}(?!\w)" for n in names))
+            for w, names in TRACE_KERNELS.items()}
+    out = dict.fromkeys(TRACE_KERNELS, 0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for w, pat in pats.items():
+                if pat.search(e.key):
+                    out[w] += e.count
+    return out
+
+
+def recorded_launches(programs, replays: dict) -> dict:
+    """What ``replays`` (key -> number of replays) of a holder's graphs
+    launch, by wrapper of TRACE_KERNELS: each graph's launches recorded at
+    its capture, times its replays."""
+    out = dict.fromkeys(TRACE_KERNELS, 0)
+    for key, n in replays.items():
+        for fn, k in programs.recorded(key).items():
+            require(fn.__name__ in out, f"graph {key} recorded {fn.__name__}, whose "
+                    f"kernel no trace check names")
+            out[fn.__name__] += n * k
+    return out
+
+
+def graph_count(counts: dict, kind: str) -> int:
+    """The sum of a holder's per-key ``counts`` (captures or replays) over
+    the keys of ``kind`` (their first element)."""
+    return sum(n for k, n in counts.items() if k[0] == kind)
+
+
+def probe_graph_vs_eager(torch, cache, kind: str, probe) -> dict:
+    """The captured search against the eager search function on the same
+    padded inputs and ``index.device_tables()``: the packed results (idx,
+    score, cls, cand, and hops and rows gathered for hnsw) equal bit for
+    bit. Returns the host ms of each (search, and one copy to the host)."""
+    import numpy as np
+
+    from repro_torch.core.hnsw import (_flat_search_classified, _pack_result,
+                                       _pad_query_batch, beam_search_classified)
+    index, pe = cache.index, cache.policies
+    times = {"graph": [], "eager": []}
+    for s in range(0, len(probe), 8):
+        part = probe[s:s + 8]
+        q = np.stack([x.embedding for x in part])
+        taus = np.array([pe.effective(x.category).threshold for x in part], np.float32)
+        cats = np.array([pe.category_id(x.category) for x in part], np.int32)
+        ttls = np.array([pe.effective(x.category).ttl for x in part], np.float32)
+        now = cache._now()
+        t0 = time.perf_counter()
+        index.search_classified(q, taus, categories=cats, ttls=ttls, now=now)
+        got = index.last_search["words"]
+        got.cpu()
+        t1 = time.perf_counter()
+        t = index.device_tables()
+        _, _, qp, taup, qcp, tp = _pad_query_batch(q, taus, cats, ttls)
+        qd, taud, qcd, ttld = (torch.from_numpy(a).cuda() for a in (qp, taup, qcp, tp))
+        now_t = torch.tensor(np.float32(now), device="cuda")
+        t2 = time.perf_counter()
+        if kind == "hnsw":
+            p = index.p
+            idx, score, cls, st = beam_search_classified(
+                t["emb"], t["neighbors"], t["valid"], t["entries"], t["inserted"], qd,
+                taud, ttld, now_t, t["category"], qcd, t.get("scale"), beam=p.beam,
+                max_hops=p.max_hops, hop_impl=index._resolve_hop_impl())
+            want = _pack_result(idx, score, cls, st["cand"], st["hops"],
+                                st["rows_gathered"])
+        else:
+            want = _pack_result(*_flat_search_classified(
+                t["emb"], t["valid"], t["category"], t["inserted"], qd, taud, qcd, ttld,
+                now_t, t.get("scale")))
+        want.cpu()
+        t3 = time.perf_counter()
+        require(torch.equal(got, want), f"main {kind}: the captured search and the "
+                f"eager one differ on probe batch {s // 8}")
+        times["graph"].append((t1 - t0) * 1e3)
+        times["eager"].append((t3 - t2) * 1e3)
+    return times
+
+
+def run_main_path(torch, counters, steps: int) -> tuple[dict, dict]:
+    """The main path's run (see the module docstring). Returns the
+    launches made at wrapper calls and those made in graph replays, by
+    wrapper, summed over the four caches."""
     import numpy as np
     launches = {k: 0 for k in counters}
+    replayed_all = dict.fromkeys(TRACE_KERNELS, 0)
     qs = table1_queries(steps * 8 + 80, seed=1)
     qs, probe = qs[:steps * 8], qs[steps * 8:]
-    uses = {"hnsw": ("frontier_hop", "gather_scores", "scatter_rows"),
-            "flat": ("flat_topk", "scatter_rows")}
     for kind in ("hnsw", "flat"):
         for dtype in ("float32", "int8"):
             cache, clock = make_cache(kind, dtype, 1_048_576, "cuda")
+            torch.cuda.reset_peak_memory_stats()
             for fn in counters.values():
                 fn.launches = 0
             t0 = time.perf_counter()
@@ -1164,11 +1299,28 @@ def run_main_path(torch, counters, steps: int) -> dict:
             counts = {k: fn.launches for k, fn in counters.items()}
             for k in counts:
                 launches[k] += counts[k]
-            for k in uses[kind]:
-                require(counts[k] > 0, f"main {kind}/{dtype}: {k} never launched")
+            index, programs = cache.index, cache.index.programs
+            searches = index.search_stats["searches"]
+            replays = sum(programs.replays.values())
+            captures = sum(programs.captures.values())
+            require(replays == searches and captures >= 1,
+                    f"main {kind}/{dtype}: {searches} searches, {replays} graph replays")
+            # Every search replays a graph. The wrappers launched at the
+            # captures' warm-ups only; the replays ran what each capture
+            # recorded (held against a profiled window in profile_lookups).
+            replayed = recorded_launches(programs, programs.replays)
+            for k in replayed:
+                replayed_all[k] += replayed[k]
+            per = ({"frontier_hop": index.p.max_hops, "gather_scores": 1}
+                   if kind == "hnsw" else {"flat_topk": 1})
+            for k, n in per.items():
+                require(counts[k] == n * captures and replayed[k] == n * searches > 0,
+                        f"main {kind}/{dtype}: {k} launched {counts[k]} times at wrapper "
+                        f"calls and {replayed[k]} in graph replays, not {n * captures} "
+                        f"({captures} warm-ups) and {n * searches} ({searches} searches)")
             flushes = cache.sync_stats["delta_updates"]
-            require(counts["scatter_rows"] == flushes,
-                    f"main {kind}/{dtype}: {counts['scatter_rows']} scatter launches for "
+            require(counts["scatter_flush"] == flushes > 0,
+                    f"main {kind}/{dtype}: {counts['scatter_flush']} scatter launches for "
                     f"{flushes} delta flushes (one launch a flush)")
             require(all(np.isfinite(d[2]) or not d[0] for d in decisions),
                     "main: a hit without a finite score")
@@ -1177,15 +1329,25 @@ def run_main_path(torch, counters, steps: int) -> dict:
             log(f"main {kind}/{dtype}: {len(qs)} queries in {wall:.2f} s; "
                 f"lookup_batch ms p50 {np.percentile(lookup_ms, 50):.3f} "
                 f"p99 {np.percentile(lookup_ms, 99):.3f}; launches {counts}")
+            log(f"main {kind}/{dtype}: graphs: captures {programs.captures}, replays "
+                f"{programs.replays}, compilations {index.search_stats['compilations']}; "
+                f"launches in graph replays {({k: n for k, n in replayed.items() if n})} "
+                f"(each graph's recorded launches x its replays), at wrapper calls "
+                f"{({k: n for k, n in counts.items() if n})}")
             log(f"main {kind}/{dtype}: hit rates {rates}")
             log(f"main {kind}/{dtype}: sync_stats {cache.sync_stats}")
             log(f"main {kind}/{dtype}: last_lookup_stats {cache.last_lookup_stats}")
             log(f"main {kind}/{dtype}: entries {len(cache)}, device memory "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak")
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak (graphs included)")
+            times = probe_graph_vs_eager(torch, cache, kind, probe)
+            log(f"main {kind}/{dtype}: {len(probe)} probe queries, captured search equals "
+                f"the eager one bit for bit; search + copy to host ms p50 graph "
+                f"{np.percentile(times['graph'], 50):.3f}, eager "
+                f"{np.percentile(times['eager'], 50):.3f}")
             log(f"main {kind}/{dtype}: profile: {profile_lookups(torch, cache, probe)}")
-            del cache
+            del cache, index, programs
             torch.cuda.empty_cache()
-    return launches
+    return launches, replayed_all
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1231,77 +1393,128 @@ def kernel_summary(torch, prof, wall_us: float) -> str:
             f"{names}")
 
 
-class ModelTimer:
-    """CUDA events around every ``Model.prefill`` and ``Model.decode_step``
-    (read after the run, so the serve loop never waits for them), and one
-    call of each (the fourth) under torch.profiler instead."""
+class GenerateTimer:
+    """Times generation on the card while ``run_serving`` runs: CUDA
+    events around every replay of a prefill and a decode graph (read
+    after the run, so the serve loop never waits for them; one replay of
+    each, the fourth, runs under torch.profiler instead), and the host
+    wall of every ``ServingEngine._generate``. The first replay of every
+    graph runs under the profiler too, untimed: ``traced`` keeps, per key,
+    the port's kernels in its trace and the launches its capture recorded.
+    Keeps the engine, whose model, weights and graph holder the checks
+    read afterwards."""
 
-    def __init__(self, torch, model_cls):
-        self.torch, self.cls = torch, model_cls
-        self.events = {"prefill": [], "decode_step": []}
-        self.calls = {"prefill": 0, "decode_step": 0}
+    KINDS = ("prefill", "decode")
+
+    def __init__(self, torch):
+        from repro_torch.core.graphs import CapturedProgram
+        from repro_torch.serving.engine import ServingEngine
+        self.torch = torch
+        self.events = {k: [] for k in self.KINDS}
         self.profiles = {}
-        self.params = None
-        self._orig = {}
+        self.traced = {}
+        self.generate_ms = []
+        self.engine = None
+        self._patches = [(CapturedProgram, "run", self._wrap_run),
+                         (ServingEngine, "_generate", self._wrap_generate)]
+        self._orig = []
 
     def __enter__(self):
-        for name in self.events:
-            self._orig[name] = getattr(self.cls, name)
-            setattr(self.cls, name, self._wrap(name, self._orig[name]))
+        for cls, name, wrap in self._patches:
+            orig = getattr(cls, name)
+            self._orig.append((cls, name, orig))
+            setattr(cls, name, wrap(orig))
         return self
 
     def __exit__(self, *exc):
-        for name, orig in self._orig.items():
-            setattr(self.cls, name, orig)
+        for cls, name, orig in self._orig:
+            setattr(cls, name, orig)
 
-    def _wrap(self, name, orig):
+    def _wrap_generate(self, orig):
+        def call(engine, params, tokens):
+            self.engine = engine
+            t0 = time.perf_counter()
+            out = orig(engine, params, tokens)      # ends in one copy to the host
+            self.generate_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    def _wrap_run(self, orig):
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
 
-        def call(model, params, *args, **kw):
-            self.params = params
-            self.calls[name] += 1
-            if len(self.events[name]) == 3 and name not in self.profiles:
+        def call(programs, key, fn, inputs=()):
+            kind = key[0] if key[0] in self.KINDS else None
+            if kind is None or not programs.ready(key):
+                return orig(programs, key, fn, inputs)    # a search, or a capture
+            if key not in self.traced:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    out = orig(programs, key, fn, inputs)
+                    torch.cuda.synchronize()
+                self.traced[key] = (traced_launches(prof),
+                                    recorded_launches(programs, {key: 1}))
+                return out
+            if len(self.events[kind]) == 3 and kind not in self.profiles:
                 torch.cuda.synchronize()
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
                     t0 = time.perf_counter()
-                    out = orig(model, params, *args, **kw)
+                    out = orig(programs, key, fn, inputs)
                     torch.cuda.synchronize()
                     wall_us = (time.perf_counter() - t0) * 1e6
-                self.profiles[name] = kernel_summary(torch, prof, wall_us)
+                self.profiles[kind] = kernel_summary(torch, prof, wall_us)
                 return out
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = orig(model, params, *args, **kw)
+            out = orig(programs, key, fn, inputs)
             end.record()
-            self.events[name].append((start, end, int(out[0].shape[0])))
+            self.events[kind].append((start, end, key[1]))
             return out
         return call
 
-    def ms(self, name) -> list[float]:
-        return [s.elapsed_time(e) for s, e, _ in self.events[name]]
+    def ms(self, kind) -> list[float]:
+        return [s.elapsed_time(e) for s, e, _ in self.events[kind]]
+
+
+def eager_tokens(torch, model, params, tokens, max_len: int, new: int):
+    """Greedy generation as the plain eager loop over ``Model.prefill``
+    and ``Model.decode_step`` (the yardstick of the captured programs)."""
+    V = model.cfg.vocab_size
+    with torch.inference_mode():
+        logits, cache, kv_len = model.prefill(
+            params, {"tokens": torch.from_numpy(tokens).cuda()}, max_len)
+        tok = logits[:, :V].argmax(-1).to(torch.int32)
+        out = [tok]
+        for _ in range(new - 1):
+            logits, cache, kv_len = model.decode_step(params, cache, tok, kv_len)
+            tok = logits[:, :V].argmax(-1).to(torch.int32)
+            out.append(tok)
+        return torch.stack(out, dim=1).cpu().numpy()
 
 
 def run_serve(torch, counters, arch: str, n_requests: int) -> dict:
     """The port's run_serving on the card: ``arch`` at full width and
     depth, seeded random weights drawn on the device, SemanticCache (hnsw,
     fp32, device search) with Table-1 traffic, batch 8, prompt 64, 16 new
-    tokens. Every kernel of the model's path must have launched: the
-    attention kernels for a dense model, mamba_scan once per layer of
-    every prefill and decode step for an ssm one."""
+    tokens. Generation replays a prefill and a decode graph per miss-batch
+    size. Every kernel of the model's path must have launched exactly once
+    per layer of every prefill (flash_attention) or decode step
+    (decode_attention) that ran on the card, a dense model's, or of both
+    (mamba_scan), an ssm model's; afterwards the captured generation must
+    give the eager loop's tokens for a batch of 8 and one of 3."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import run_serving
-    from repro_torch.models.model import Model
     cfg = get_config(arch)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
-    with ModelTimer(torch, Model) as timer:
+    with GenerateTimer(torch) as timer:
         t0 = time.perf_counter()
         out = run_serving(cfg, n_requests=n_requests, max_batch=8, prompt_len=64,
                           max_new_tokens=16, seed=0, index_kind="hnsw",
@@ -1310,54 +1523,94 @@ def run_serve(torch, counters, arch: str, n_requests: int) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     counts = {k: fn.launches for k, fn in counters.items()}
-    path = (("flash_attention", "decode_attention") if cfg.family == "dense"
-            else ("mamba_scan",))
-    for k in path + ("frontier_hop", "gather_scores"):
-        require(counts[k] > 0, f"serve {arch}: {k} never launched")
-    if cfg.family == "ssm":
-        calls = timer.calls["prefill"] + timer.calls["decode_step"]
-        require(counts["mamba_scan"] == cfg.n_layers * calls,
-                f"serve {arch}: mamba_scan launched {counts['mamba_scan']} times, "
-                f"not {cfg.n_layers} per prefill and decode step ({calls})")
     peak = torch.cuda.max_memory_allocated()
+    engine = timer.engine
+    programs = engine.programs
+    # One replay of every graph, profiled: the port's kernels in its trace
+    # are exactly what its capture recorded.
+    for key in programs.keys():
+        require(key in timer.traced, f"serve {arch}: graph {key} never replayed")
+        traced, recorded = timer.traced[key]
+        require(traced == recorded, f"serve {arch}: a replay of graph {key} ran "
+                f"{traced} launches of the port's kernels, its capture recorded {recorded}")
+    # The wrappers launched at the captures' warm-ups only; the replays ran
+    # what the captures recorded.
+    replayed = recorded_launches(programs, programs.replays)
+    caps = {k: graph_count(programs.captures, k) for k in GenerateTimer.KINDS}
+    reps = {k: graph_count(programs.replays, k) for k in GenerateTimer.KINDS}
+    path = ({"flash_attention": ("prefill",), "decode_attention": ("decode",)}
+            if cfg.family == "dense" else {"mamba_scan": GenerateTimer.KINDS})
+    for k, kinds in path.items():
+        warm, runs = sum(caps[g] for g in kinds), sum(reps[g] for g in kinds)
+        require(counts[k] == cfg.n_layers * warm > 0
+                and replayed[k] == cfg.n_layers * runs > 0,
+                f"serve {arch}: {k} launched {counts[k]} times at wrapper calls and "
+                f"{replayed[k]} in graph replays, not {cfg.n_layers} per layer of "
+                f"{warm} warm-ups and of {runs} replays of the {kinds} graphs")
+    for k in ("frontier_hop", "gather_scores"):
+        require(counts[k] > 0, f"serve {arch}: {k} never launched")
     snap = out["per_category"]
     misses = round(out["served"] * (1 - out["hit_rate"]))
     require(out["served"] == n_requests, f"serve {arch}: not every request was served")
     require(out["model_tokens"] == 16 * misses and misses > 0,
             f"serve {arch}: every miss must generate 16 model tokens")
-    pre, dec = timer.ms("prefill"), timer.ms("decode_step")
-    batches = [b for *_, b in timer.events["decode_step"]]
+    # Every generate replays its prefill graph once (and once more when it
+    # captures, before decode's capture) and its decode graph 15 times.
+    n_gen = len(timer.generate_ms)
+    require(reps == {"prefill": n_gen + caps["prefill"], "decode": 15 * n_gen},
+            f"serve {arch}: {n_gen} generates, graph replays {reps}")
+    captured = sorted(k for k in programs.captures)
+    pre, dec = timer.ms("prefill"), timer.ms("decode")
+    batches = [b for *_, b in timer.events["decode"]]
     dec_s = sum(dec) / 1e3
-    step = decode_step_bound(timer.params, cfg, statistics.mean(batches), prompt_len=64,
+    step = decode_step_bound(engine.params, cfg, statistics.mean(batches), prompt_len=64,
                              new_tokens=16)
     numbers = dict(
         served=out["served"], hit_rate=out["hit_rate"], model_tokens=out["model_tokens"],
-        model_batches=timer.calls["prefill"], decode_steps=timer.calls["decode_step"],
+        model_batches=n_gen, decode_steps=reps["decode"],
         prefill_ms_p50=float(np.percentile(pre, 50)),
         prefill_ms_p99=float(np.percentile(pre, 99)),
         decode_ms_p50=float(np.percentile(dec, 50)),
         decode_ms_p99=float(np.percentile(dec, 99)),
+        generate_ms_p50=float(np.percentile(timer.generate_ms, 50)),
         decode_tokens_per_s=sum(batches) / dec_s,
         tokens_per_s=out["model_tokens"] / wall, wall_s=wall,
-        peak_gib=peak / 2**30, launches=counts, **step)
+        peak_gib=peak / 2**30, launches=counts, replay_launches=replayed, **step)
     rates = {c: round(row["hit_rate"], 4) for c, row in sorted(snap.items())
              if "hit_rate" in row}
     log(f"serve {arch}: {out['served']} served, {misses} served by the model, "
         f"{out['model_tokens']} model tokens; hit rates {rates}")
-    log(f"serve {arch}: prefill ms per batch p50 {numbers['prefill_ms_p50']:.3f} p99 "
-        f"{numbers['prefill_ms_p99']:.3f} ({len(pre)} timed of {timer.calls['prefill']}); "
-        f"decode ms per token p50 {numbers['decode_ms_p50']:.3f} p99 "
-        f"{numbers['decode_ms_p99']:.3f} ({len(dec)} timed of "
-        f"{timer.calls['decode_step']}, mean batch {statistics.mean(batches):.2f})")
+    log(f"serve {arch}: graphs captured {len(captured)} ({captured}); replays "
+        f"{dict(sorted(programs.replays.items()))}")
+    log(f"serve {arch}: prefill replay ms per batch p50 {numbers['prefill_ms_p50']:.3f} "
+        f"p99 {numbers['prefill_ms_p99']:.3f} ({len(pre)} timed); decode replay ms per "
+        f"token p50 {numbers['decode_ms_p50']:.3f} p99 {numbers['decode_ms_p99']:.3f} "
+        f"({len(dec)} timed, mean batch {statistics.mean(batches):.2f}); host wall of "
+        f"_generate ms p50 {numbers['generate_ms_p50']:.3f} p99 "
+        f"{np.percentile(timer.generate_ms, 99):.3f} ({len(timer.generate_ms)} calls)")
     log(f"serve {arch}: {numbers['decode_tokens_per_s']:.1f} decode tokens/s, "
         f"{numbers['tokens_per_s']:.1f} model tokens/s over {wall:.2f} s wall; "
-        f"peak device memory {numbers['peak_gib']:.2f} GiB; launches {counts}")
+        f"peak device memory {numbers['peak_gib']:.2f} GiB (graphs included); "
+        f"launches at wrapper calls {({k: n for k, n in counts.items() if n})}, in "
+        f"graph replays {({k: n for k, n in replayed.items() if n})} (each graph's "
+        f"recorded launches x its replays; one profiled replay of each of the "
+        f"{len(timer.traced)} graphs ran exactly its recorded launches)")
     log(f"serve {arch}: decode step bound {step['decode_bound_ms']:.4f} ms, "
         f"{step['decode_bound_by']} ({step['decode_bytes'] / 1e9:.4f} GB at the mean "
         f"batch: bf16 layers, bf16 head, {step['decode_state']}); the fp32 head copy "
         f"the port reads instead adds {step['fp32_head_extra_ms']:.4f} ms")
     for name, text in timer.profiles.items():
-        log(f"serve {arch}: profile of one {name}: {text}")
+        log(f"serve {arch}: profile of one {name} replay: {text}")
+    rng = np.random.default_rng(11)
+    for B in (8, 3):
+        toks = rng.integers(2, cfg.vocab_size, (B, 64)).astype(np.int32)
+        got = engine._generate(engine.params, toks)
+        want = eager_tokens(torch, engine.model, engine.params, toks, 80, 16)
+        require(np.array_equal(got, want), f"serve {arch}: B={B} graph tokens "
+                f"{got.tolist()} differ from the eager loop's {want.tolist()}")
+    log(f"serve {arch}: graph tokens equal the eager loop's for B = 8 and B = 3 "
+        f"(16 tokens each)")
+    del engine, programs, timer
     return numbers
 
 
@@ -1487,6 +1740,9 @@ MAIN_KEY = {"flash_attention": ("serve", "bfloat16"),
 # is on neither and counts 0).
 SERVE_KERNELS = {"flash_attention": "llama3.2-3b", "decode_attention": "llama3.2-3b",
                  "mamba_scan": "falcon-mamba-7b"}
+# A kernel launched by more than one counted wrapper (by default its own):
+# the scatter kernel by the delta flush's entry and the per-table one.
+KERNEL_WRAPPERS = {"scatter_rows": ("scatter_flush", "scatter_rows")}
 
 
 PHASES = ("build", "kernels", "index", "main", "parity", "serve")
@@ -1512,21 +1768,10 @@ def main(argv: list[str]) -> int:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False     # plain versions in fp32
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flat_topk import flat_topk
-    from repro_torch.kernels.frontier_hop import frontier_hop
-    from repro_torch.kernels.gather_scores import gather_scores, gather_scores_masked
-    from repro_torch.kernels.mamba_scan import mamba_scan
-    from repro_torch.kernels.scatter_update import scatter_flush
-    # scatter_rows's row counts the flush entry's launches: the delta flush
-    # is the path's one caller of that kernel.
-    counters = {"frontier_hop": frontier_hop, "gather_scores": gather_scores,
-                "flat_topk": flat_topk, "scatter_rows": scatter_flush,
-                "gather_scores_masked": gather_scores_masked,
-                "flash_attention": flash_attention, "decode_attention": decode_attention,
-                "mamba_scan": mamba_scan}
+    from repro_torch.kernels import _build, ops
+    counters = {fn.__name__: fn for fn in ops.COUNTED}
+    require(all(w in counters for k in KERNELS for w in KERNEL_WRAPPERS.get(k, (k,))),
+            f"a kernel of {list(KERNELS)} has no counted wrapper in {list(counters)}")
     dev = torch.device("cuda")
     log(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
@@ -1551,8 +1796,9 @@ def main(argv: list[str]) -> int:
             log(f"phase index: {time.perf_counter() - t0:.1f} s")
         if "main" in phases:
             t0 = time.perf_counter()
-            launches = run_main_path(torch, counters, steps=400)
-            log(f"phase main: {time.perf_counter() - t0:.1f} s; launches {launches}")
+            launches, replayed = run_main_path(torch, counters, steps=400)
+            log(f"phase main: {time.perf_counter() - t0:.1f} s; launches at wrapper calls "
+                f"{launches}, in graph replays {replayed}")
         if "parity" in phases:
             t0 = time.perf_counter()
             check_card_vs_cpu(steps=50)
@@ -1581,13 +1827,16 @@ def main(argv: list[str]) -> int:
         return 4
 
     launches.update({k: served[arch]["launches"][k] for k, arch in SERVE_KERNELS.items()})
+    replayed.update({k: served[arch]["replay_launches"][k]
+                     for k, arch in SERVE_KERNELS.items()})
     fields = ("max_abs_err", "ms", "earlier_ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms", "per_table_ms", "splits", "chunk", "chunk_ms")
     rows = []
     for name, (source, replaces) in KERNELS.items():
         key = (name, *MAIN_KEY.get(name, ("float32",)))
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-               "launches": launches[name]}
+               "launches": sum(launches[w] for w in KERNEL_WRAPPERS.get(name, (name,))),
+               "replay_launches": replayed.get(name, 0)}
         row.update({f: numbers[key][f] for f in fields if f in numbers[key]})
         variants = {"_".join(k[1:]): {f: v[f] for f in fields if f in v}
                     for k, v in numbers.items() if k[0] == name and k != key}

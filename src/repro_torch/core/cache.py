@@ -40,9 +40,11 @@ then exact for that candidate but can differ from an exact-search
 oracle. That needs a near-tie exactly at τ; the τ-boundary property
 test pins the guarantee for separated entries.)
 
-The device search returns device tensors; ``lookup_batch`` brings the
-stacked (idx, score, cls, cand, hops, rows) to the host in ONE copy, and
-the index runs on the card unless ``device="cpu"`` is passed.
+The device search is one captured program on the card (a CUDA graph per
+batch bucket, ``core/graphs.py``) whose tail packs (idx, score, cls, cand,
+hops, rows) into one int32 word buffer; ``lookup_batch`` brings it to the
+host in ONE copy, with no launch after the replay. The index runs on the
+card unless ``device="cpu"`` is passed.
 
 The write path is batched end-to-end: ``insert_batch`` runs one eviction
 scoring pass, one ``store.put_many`` pass and one ``index.add_batch`` pass
@@ -69,31 +71,6 @@ from repro_torch.core.metrics import MetricsRegistry
 from repro_torch.core.policy import PolicyEngine
 from repro_torch.core.storage import Document, DocumentStore, InMemoryStore
 from repro_torch.obs.trace import NULL_SPAN
-
-
-def _to_host(*xs) -> list[np.ndarray]:
-    """Bring device results to the host in ONE device→host copy: every
-    tensor is viewed as int32 words (fp32 scores bitcast, so nothing is
-    rounded), concatenated on the device, copied once and split back.
-    Non-tensor values (the flat index's host-side counters) pass through."""
-    tensors = [x for x in xs if isinstance(x, torch.Tensor)]
-    words = []
-    for t in tensors:
-        t = t.reshape(-1)
-        words.append(t.view(torch.int32) if t.dtype == torch.float32
-                     else t.to(torch.int32))
-    flat = torch.cat(words).cpu().numpy() if words else np.zeros(0, np.int32)
-    out, pos = [], 0
-    for x in xs:
-        if not isinstance(x, torch.Tensor):
-            out.append(np.asarray(x))
-            continue
-        part = flat[pos:pos + x.numel()]
-        pos += x.numel()
-        if x.dtype == torch.float32:
-            part = part.view(np.float32)
-        out.append(part.reshape(tuple(x.shape)))
-    return out
 
 
 @dataclass
@@ -311,15 +288,14 @@ class SemanticCache:
                 # the only host sync is this single copy — the Python
                 # below then touches actual hits (doc fetch) and
                 # expirations (evict), not all B results.
-                d_idx, d_score, d_cls, d_cand = self.index.search_classified(
-                    q, taus, categories=qcats, ttls=ttls, now=now)
+                self.index.search_classified(q, taus, categories=qcats,
+                                             ttls=ttls, now=now)
                 ls = self.index.last_search
-                idxs, scores, cls, cands, hops, rows = _to_host(
-                    d_idx, d_score, d_cls, d_cand, ls.get("hops", 0),
-                    ls.get("rows_gathered", 0))
-                idxs = np.asarray(idxs, np.int64)
-                scores = np.asarray(scores, np.float64)
-                cls = np.array(cls)    # writable: the re-rank tier may edit
+                res = self.index.last_search_host()
+                idxs = np.asarray(res["idx"], np.int64)
+                scores = np.asarray(res["score"], np.float64)
+                cls = np.array(res["cls"])  # writable: the re-rank tier may edit
+                cands, hops, rows = res["cand"], res["hops"], res["rows_gathered"]
             else:
                 idxs, scores = self.index.search_host(q, taus,
                                                       categories=qcats)

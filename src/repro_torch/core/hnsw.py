@@ -20,7 +20,14 @@ tests. Two planes:
 The reference's ``jax.lax.while_loop`` is a fixed loop of ``max_hops``
 here, with no host sync per hop: ``hops`` counts on the device while any
 query is live (``done`` only grows, so the count matches), and frozen
-lanes gather nothing, so ``rows_gathered`` matches too. The reference's
+lanes gather nothing, so ``rows_gathered`` matches too. Where the
+reference jits each search, the port captures it: on the card every
+search (``FlatIndex.search_classified``, ``HNSWIndex.search_batch`` and
+``search_classified``) is one CUDA graph per batch bucket, dropped on a
+full upload (``core/graphs.py``), fed from one packed input buffer and
+writing one packed int32 word buffer of results; on the CPU the same
+program runs eagerly. ``beam_search`` and ``beam_search_classified``
+stay plain functions (the yardstick of the captured programs). The reference's
 ``jax.lax.top_k`` puts the lower position first on ties, and the
 fixpoint test compares positions, so the merge sorts stably
 (``torch.sort(..., stable=True)``), never with ``torch.topk``.
@@ -54,6 +61,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.core.graphs import CapturedProgram
 from repro_torch.kernels import ops, ref
 
 INVALID = -1
@@ -63,6 +71,13 @@ TOMBSTONE = ref.TOMBSTONE
 # device inside the search so the cache's Python loop only touches actual
 # hits (doc fetch) and expirations (evict):
 CLS_MISS, CLS_EXPIRED, CLS_HIT = 0, 1, 2
+
+# A device search's results travel as ONE packed int32 word buffer (the
+# captured program's output, fp32 scores bit-cast so nothing is rounded),
+# field after field: Bp words each, ``hops`` one word.
+FLAT_RESULT = ("idx", "score", "cls", "cand")
+BEAM_RESULT = ("idx", "score", "hops", "rows_gathered")
+CLASSIFIED_RESULT = ("idx", "score", "cls", "cand", "hops", "rows_gathered")
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -110,6 +125,30 @@ def _pad_query_batch(queries: np.ndarray, thresholds, categories, ttls
     if ttls is not None:
         tp[:B] = np.broadcast_to(np.asarray(ttls, np.float32), (B,))
     return B, Bp, qp, taup, qcp, tp
+
+
+def _pack_result(*parts: torch.Tensor) -> torch.Tensor:
+    """A search's results (in a ``*_RESULT`` order) as one int32 word
+    buffer: fp32 tensors bit-cast, the others converted."""
+    return torch.cat([p.reshape(-1).view(torch.int32) if p.dtype == torch.float32
+                      else p.reshape(-1).to(torch.int32) for p in parts])
+
+
+def split_result(words, fields: tuple, Bp: int, B: int) -> dict:
+    """Views of a packed search result (a device tensor, or its numpy copy
+    on the host): each field's first B entries, scores as fp32, ``hops``
+    a scalar."""
+    f32 = torch.float32 if isinstance(words, torch.Tensor) else np.float32
+    out, pos = {}, 0
+    for name in fields:
+        if name == "hops":
+            out[name] = words[pos]
+            pos += 1
+            continue
+        part = words[pos:pos + B]
+        out[name] = part.view(f32) if name == "score" else part
+        pos += Bp
+    return out
 
 
 def quantize_rows(vecs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -185,8 +224,9 @@ class DeviceResidentIndex:
     ``FlatIndex`` and ``HNSWIndex``: the version counter, dirty-row log,
     persistent device tables with in-place delta flush
     (``_flush_device_tables``), sync accounting, the embedding-tier dtype
-    (fp32 / int8 with per-slot scales), and the searches/compilations/
-    last-search counters. A subclass provides ``_host_tables()``,
+    (fp32 / int8 with per-slot scales), the captured search programs
+    (``programs``), and the searches/compilations/last-search counters.
+    A subclass provides ``_host_tables()``,
     ``_row_nbytes()``, ``_rebuild_threshold()`` and (optionally)
     ``_finish_sync()`` for state that rides along on every sync (the HNSW
     entry set)."""
@@ -216,6 +256,9 @@ class DeviceResidentIndex:
         self.search_stats = {"searches": 0, "compilations": 0}
         self._compiled_keys: set = set()
         self.last_search: dict = {}
+        # The device searches, one captured program per search signature
+        # (a full upload replaces the storages and drops them).
+        self.programs = CapturedProgram(self.device)
 
     @property
     def quantized(self) -> bool:
@@ -283,6 +326,7 @@ class DeviceResidentIndex:
         """
         if self._device is not None and self._device_version == self._version:
             return self._device
+        prev = self._device
         try:
             self._device = _flush_device_tables(
                 self._device, self._host_tables(), self._dirty, self.capacity,
@@ -296,35 +340,56 @@ class DeviceResidentIndex:
             # upload; the dirty log is preserved unconsumed.
             self._device = None
             raise
+        if self._device is not prev:
+            # A full upload: new storages. Drop the graphs that read the
+            # old ones (their programs hold them) before any is captured
+            # anew; a delta flush writes in place and keeps them valid.
+            self.programs.clear()
         self._finish_sync(self._device)
         self._dirty.clear()
         self._device_version = self._version
         return self._device
 
-    def _record_search(self, B: int, Bp: int, key_extra: tuple = (),
-                       stats: dict | None = None) -> None:
+    def _search(self, B: int, Bp: int, key_extra: tuple, program, inputs: tuple,
+                fields: tuple) -> dict:
+        """Run one device search: ``program(*views of inputs)`` returns its
+        packed result (``fields``). On the card it is the graph captured
+        for this signature since the last full upload, replayed; on the CPU an
+        eager call. The result is cloned (it outlives the next replay),
+        counted, and kept in ``last_search``, whose views it returns."""
+        key = (Bp,) + tuple(key_extra)
+        words = self.programs.run(key, program, [np.asarray(a) for a in inputs]).clone()
+        self._record_search(B, Bp, key, words, fields)
+        return self.last_search
+
+    def _record_search(self, B: int, Bp: int, key: tuple, words: torch.Tensor,
+                       fields: tuple) -> None:
         """Count a device search: ``compilations`` is the number of
-        distinct search signatures seen (padded batch + impl knobs) — the
-        bucketing counter — and ``last_search`` keeps the hops/rows-
-        gathered device tensors without forcing a host sync."""
+        distinct search signatures seen (padded batch + impl knobs), the
+        reference's count of compiled programs; ``last_search`` keeps the
+        packed result and its device views (hops, rows gathered) without
+        a host sync."""
         st = self.search_stats
         st["searches"] += 1
-        self._compiled_keys.add((Bp,) + tuple(key_extra))
+        self._compiled_keys.add(key)
         st["compilations"] = len(self._compiled_keys)
-        if stats is None:   # flat scan: the whole table streams per batch
-            self.last_search = {"batch": B, "padded_batch": Bp, "hops": 0,
-                                "rows_gathered": np.full(B, self.capacity,
-                                                         np.int64)}
-        else:
-            self.last_search = {"batch": B, "padded_batch": Bp,
-                                "hops": stats["hops"],
-                                "rows_gathered": stats["rows_gathered"][:B]}
+        self.last_search = {"batch": B, "padded_batch": Bp, "words": words,
+                            "fields": fields, **split_result(words, fields, Bp, B)}
+        if "hops" not in fields:   # flat scan: the whole table streams per batch
+            self.last_search.update(hops=0, rows_gathered=np.full(B, self.capacity,
+                                                                  np.int64))
         self.last_search["gather_row_nbytes"] = self.emb_row_nbytes()
 
-    def _query_tensors(self, qp, taup, qcp, tp, now: float):
-        dev = self.device
-        return (_upload(qp, dev), _upload(taup, dev), _upload(qcp, dev),
-                _upload(tp, dev), torch.tensor(np.float32(now), device=dev))
+    def last_search_host(self) -> dict:
+        """The last search's results on the host: ONE device→host copy of
+        its packed words, no launch (hops and rows gathered of a flat scan
+        are host values already)."""
+        ls = self.last_search
+        out = split_result(ls["words"].cpu().numpy(), ls["fields"],
+                           ls["padded_batch"], ls["batch"])
+        out.setdefault("hops", ls["hops"])
+        out.setdefault("rows_gathered", ls["rows_gathered"])
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -447,12 +512,15 @@ class FlatIndex(DeviceResidentIndex):
         t = self.device_tables()
         B, Bp, qp, taup, qcp, tp = _pad_query_batch(
             queries, thresholds, categories, ttls)
-        q, tau, qc, ttl, now_t = self._query_tensors(qp, taup, qcp, tp, now)
-        idx, score, cls, cand = _flat_search_classified(
-            t["emb"], t["valid"], t["category"], t["inserted"], q, tau, qc,
-            ttl, now_t, t.get("scale"))
-        self._record_search(B, Bp)
-        return idx[:B], score[:B], cls[:B], cand[:B]
+
+        def program(q, tau, qc, ttl, now_t):
+            return _pack_result(*_flat_search_classified(
+                t["emb"], t["valid"], t["category"], t["inserted"], q, tau, qc,
+                ttl, now_t, t.get("scale")))
+
+        r = self._search(B, Bp, (), program, (qp, taup, qcp, tp, np.float32(now)),
+                         FLAT_RESULT)
+        return r["idx"], r["score"], r["cls"], r["cand"]
 
 
 # ---------------------------------------------------------------------------
@@ -943,9 +1011,15 @@ class HNSWIndex(DeviceResidentIndex):
         return self.p.rebuild_threshold
 
     def _finish_sync(self, device_tables: dict) -> None:
-        # The tiny entry set (E ints) rides along on every sync.
+        # The tiny entry set (E ints, INVALID-padded) rides along on every
+        # sync, copied into one persistent buffer: a captured search reads
+        # it in place, and only a full upload (a new table dict) makes a
+        # new one.
         entries = self.entry_set()
-        device_tables["entries"] = _upload(entries, self.device)
+        if "entries" in device_tables:
+            device_tables["entries"].copy_(torch.from_numpy(entries))
+        else:
+            device_tables["entries"] = _upload(entries, self.device)
         self.sync_stats["bytes_synced"] += entries.nbytes
 
     def _resolve_hop_impl(self) -> str:
@@ -961,18 +1035,20 @@ class HNSWIndex(DeviceResidentIndex):
         DEVICE (idx, score). Per-search hops/rows-gathered land in
         ``self.last_search`` as device tensors (no sync)."""
         t = self.device_tables()
-        B, Bp, qp, taup, qcp, tp = _pad_query_batch(
+        B, Bp, qp, taup, qcp, _ = _pad_query_batch(
             queries, thresholds, categories, None)
-        q, tau, qc, _, _ = self._query_tensors(qp, taup, qcp, tp, 0.0)
-        impl = self._resolve_hop_impl()
-        idx, score, stats = beam_search(
-            t["emb"], t["neighbors"], t["valid"], t["entries"], q, tau,
-            t["category"], qc, t.get("scale"), beam=self.p.beam,
-            max_hops=self.p.max_hops, hop_impl=impl)
-        self._record_search(B, Bp,
-                            ("beam", self.p.beam, self.p.max_hops, impl),
-                            stats)
-        return idx[:B], score[:B]
+        impl, p = self._resolve_hop_impl(), self.p
+
+        def program(q, tau, qc):
+            idx, score, stats = beam_search(
+                t["emb"], t["neighbors"], t["valid"], t["entries"], q, tau,
+                t["category"], qc, t.get("scale"), beam=p.beam,
+                max_hops=p.max_hops, hop_impl=impl)
+            return _pack_result(idx, score, stats["hops"], stats["rows_gathered"])
+
+        r = self._search(B, Bp, ("beam", p.beam, p.max_hops, impl), program,
+                         (qp, taup, qcp), BEAM_RESULT)
+        return r["idx"], r["score"]
 
     def search_classified(self, queries: np.ndarray, thresholds: np.ndarray,
                           *, categories: np.ndarray | None = None,
@@ -986,17 +1062,19 @@ class HNSWIndex(DeviceResidentIndex):
         t = self.device_tables()
         B, Bp, qp, taup, qcp, tp = _pad_query_batch(
             queries, thresholds, categories, ttls)
-        q, tau, qc, ttl, now_t = self._query_tensors(qp, taup, qcp, tp, now)
-        impl = self._resolve_hop_impl()
-        idx, score, cls, stats = beam_search_classified(
-            t["emb"], t["neighbors"], t["valid"], t["entries"],
-            t["inserted"], q, tau, ttl, now_t, t["category"], qc,
-            t.get("scale"), beam=self.p.beam, max_hops=self.p.max_hops,
-            hop_impl=impl)
-        self._record_search(B, Bp,
-                            ("classified", self.p.beam, self.p.max_hops,
-                             impl), stats)
-        return idx[:B], score[:B], cls[:B], stats["cand"][:B]
+        impl, p = self._resolve_hop_impl(), self.p
+
+        def program(q, tau, qc, ttl, now_t):
+            idx, score, cls, stats = beam_search_classified(
+                t["emb"], t["neighbors"], t["valid"], t["entries"],
+                t["inserted"], q, tau, ttl, now_t, t["category"], qc,
+                t.get("scale"), beam=p.beam, max_hops=p.max_hops, hop_impl=impl)
+            return _pack_result(idx, score, cls, stats["cand"], stats["hops"],
+                                stats["rows_gathered"])
+
+        r = self._search(B, Bp, ("classified", p.beam, p.max_hops, impl), program,
+                         (qp, taup, qcp, tp, np.float32(now)), CLASSIFIED_RESULT)
+        return r["idx"], r["score"], r["cls"], r["cand"]
 
     # -- bulk build (benchmarks) -------------------------------------------------
     @classmethod

@@ -2,7 +2,8 @@
 model's attention and its Mamba layers' selective scan.
 
 Each module holds a kernel's wrapper, its plain PyTorch version and a
-launch counter (``<wrapper>.launches``); the CUDA sources are in
+launch counter (``<wrapper>.launches``, and ``<wrapper>.recorded`` for
+the launches recorded into a CUDA graph); the CUDA sources are in
 ``repro_torch/csrc`` and ``_build`` compiles them with ``nvcc`` at first
 use. ``ops`` is the public surface; ``ref`` holds the oracles.
 

@@ -125,6 +125,18 @@ def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def count(wrapper) -> None:
+    """Count one launch by ``wrapper`` where it launches its kernel: in
+    ``wrapper.launches`` when the kernel runs now, in ``wrapper.recorded``
+    when the current stream is capturing a CUDA graph. A recorded launch
+    runs at every replay of that graph, which calls no wrapper: its
+    holder counts the replays (``core/graphs.py``)."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.recorded += 1
+    else:
+        wrapper.launches += 1
+
+
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

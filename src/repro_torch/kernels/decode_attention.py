@@ -153,8 +153,8 @@ def _decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Ten
         scale if scale is not None else dh ** -0.5, softcap or 0.0, window or 0,
         chunk, ns, _DTYPES[q.dtype], _build.stream(q.device))
     _build.check(err, "decode_attention")
-    decode_attention.launches += 1
+    _build.count(decode_attention)
     return out
 
 
-decode_attention.launches = 0
+decode_attention.launches = decode_attention.recorded = 0

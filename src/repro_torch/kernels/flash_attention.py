@@ -108,8 +108,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         err = lib.flash_attention_launch(*args, _DTYPES[q.dtype], _build.stream(q.device))
     _build.check(err, "flash_attention")
-    flash_attention.launches += 1
+    _build.count(flash_attention)
     return out
 
 
-flash_attention.launches = 0
+flash_attention.launches = flash_attention.recorded = 0

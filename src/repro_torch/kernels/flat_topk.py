@@ -109,8 +109,8 @@ def flat_topk(table: torch.Tensor, valid: torch.Tensor, queries: torch.Tensor,
         N, d, B, int(scales is not None), n_chunks,
         _build.stream(dev))
     _build.check(err, "flat_topk")
-    flat_topk.launches += 1
+    _build.count(flat_topk)
     return score, idx
 
 
-flat_topk.launches = 0
+flat_topk.launches = flat_topk.recorded = 0

@@ -123,11 +123,11 @@ def frontier_hop(emb: torch.Tensor, neighbors: torch.Tensor,
                                   query_categories, done, scales)
     out = _launch("frontier_hop", False, emb, neighbors, meta, frontier, queries,
                   query_categories, done, scales)
-    frontier_hop.launches += 1
+    _build.count(frontier_hop)
     return out
 
 
-frontier_hop.launches = 0
+frontier_hop.launches = frontier_hop.recorded = 0
 
 
 def frontier_hop_serial(emb: torch.Tensor, neighbors: torch.Tensor,

@@ -86,11 +86,11 @@ def gather_scores(table: torch.Tensor, indices: torch.Tensor,
         table.shape[0], table.shape[1], B, K, int(scales is not None),
         _build.stream(table.device))
     _build.check(err, "gather_scores")
-    gather_scores.launches += 1
+    _build.count(gather_scores)
     return out
 
 
-gather_scores.launches = 0
+gather_scores.launches = gather_scores.recorded = 0
 
 
 def gather_scores_masked(table: torch.Tensor, indices: torch.Tensor,
@@ -119,8 +119,8 @@ def gather_scores_masked(table: torch.Tensor, indices: torch.Tensor,
         table.shape[0], table.shape[1], B, K, int(scales is not None),
         _build.stream(table.device))
     _build.check(err, "gather_scores_masked")
-    gather_scores_masked.launches += 1
+    _build.count(gather_scores_masked)
     return out
 
 
-gather_scores_masked.launches = 0
+gather_scores_masked.launches = gather_scores_masked.recorded = 0

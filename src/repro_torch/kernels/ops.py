@@ -27,6 +27,13 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import scatter_update as _su
 
 
+# Every wrapper that counts its kernel's launches (``<wrapper>.launches``,
+# and ``.recorded`` under a graph capture: see ``_build.count``).
+COUNTED = (_fh.frontier_hop, _gs.gather_scores, _gs.gather_scores_masked,
+           _ft.flat_topk, _su.scatter_rows, _su.scatter_flush,
+           _fa.flash_attention, _da.decode_attention, _ms.mamba_scan)
+
+
 def _i32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
 

@@ -148,10 +148,10 @@ def scatter_flush(tables: Sequence[torch.Tensor], packed: torch.Tensor,
     if R > 0:
         _launch("scatter_flush", packed.data_ptr(), R, tables,
                 [s.data_ptr() for s in segs])
-        scatter_flush.launches += 1
+        _build.count(scatter_flush)
 
 
-scatter_flush.launches = 0
+scatter_flush.launches = scatter_flush.recorded = 0
 
 
 def scatter_rows(table: torch.Tensor, rows: torch.Tensor,
@@ -172,8 +172,8 @@ def scatter_rows(table: torch.Tensor, rows: torch.Tensor,
     _check_tables("scatter_rows", [table])
     if rows.shape[0] > 0:
         _launch("scatter_rows", rows.data_ptr(), rows.shape[0], [table], [vals.data_ptr()])
-        scatter_rows.launches += 1
+        _build.count(scatter_rows)
     return table
 
 
-scatter_rows.launches = 0
+scatter_rows.launches = scatter_rows.recorded = 0

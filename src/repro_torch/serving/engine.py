@@ -1,14 +1,27 @@
 """Live batched serving engine: semantic cache in front of a real model.
 
 The counterpart of ``repro.serving.engine`` in PyTorch. The reference
-jits prefill and a ``lax.scan`` greedy decode into one function; here
-generation is a Python loop over ``Model.decode_step`` with the argmax on
-the device (first index on ties, as ``jnp.argmax``), and the tokens come
-to the host in ONE copy at the end of the loop, never one per token. The
-loop is the same for every ported family: a dense model's cache holds
-K/V, an ssm model's (falcon-mamba) its Mamba state, and both take
-``kv_len``. Prompts are fixed at ``prompt_len``, so no padding token ever
-enters a recurrence. The
+jits prefill and a ``lax.scan`` greedy decode into one function per
+miss-batch size; here generation is two captured programs per miss-batch
+size B (``core/graphs.py``; B is never padded, so every matrix product
+keeps the shape, and the tokens, of the eager loop):
+
+* **prefill**: ``Model.prefill`` of a static (B, prompt_len) token buffer,
+  the argmax of the last logits (first index on ties, as ``jnp.argmax``)
+  and token 0 of a static (B, max_new) output. The cache it allocates
+  (K/V, or the Mamba state) lives in the engine's graph pool and is
+  re-zeroed by every replay;
+* **decode**: ``Model.decode_step`` on that cache (written in place) and
+  the argmax, which writes the token into its column of the output and
+  the token and ``kv_len + 1`` back over the program's own inputs. It is
+  replayed ``max_new - 1`` times.
+
+The tokens come to the host in ONE copy after the last step, never one
+per token. On the CPU the same programs run eagerly. The programs are
+the same for every ported family: a dense model's cache holds K/V, an
+ssm model's (falcon-mamba) its Mamba state, and both take ``kv_len``.
+Prompts are fixed at ``prompt_len``, so no padding token ever enters a
+recurrence. The
 sharded cache tier (``core/shard.py``) is not ported yet, so ``cache`` is
 a ``SemanticCache``.
 
@@ -40,6 +53,7 @@ import torch
 
 from repro_torch.core.cache import SemanticCache
 from repro_torch.core.embedding import FeatureHashEmbedder
+from repro_torch.core.graphs import CapturedProgram
 from repro_torch.core.policy import AdaptiveController, LoadSignal
 from repro_torch.distributed.fault import StepWatchdog
 from repro_torch.models.model import Model
@@ -128,20 +142,53 @@ class ServingEngine:
         self.stats = EngineStats()
         self._next_id = 0
         self._max_len = prompt_len + max_new_tokens
+        # Generation's programs (prefill and decode per miss-batch size),
+        # captured for one set of weights: their graphs read its storages.
+        self.programs = CapturedProgram(model.device)
+        self._program_params = None
 
     @torch.inference_mode()
-    def _generate(self, params, tokens: torch.Tensor) -> np.ndarray:
-        """Prefill, then greedy decode: (B, S) prompt tokens -> (B, new)
-        tokens as numpy, copied to the host once, after the last step."""
-        model, V = self.model, self.model.cfg.vocab_size
-        logits, cache, kv_len = model.prefill(params, {"tokens": tokens}, self._max_len)
-        tok = logits[:, :V].argmax(-1).to(torch.int32)
-        toks = [tok]
-        for _ in range(self.max_new - 1):
-            logits, cache, kv_len = model.decode_step(params, cache, tok, kv_len)
+    def _generate(self, params, tokens: np.ndarray) -> np.ndarray:
+        """Prefill, then greedy decode: (B, S) int32 prompt tokens -> (B,
+        new) tokens as numpy, copied to the host once, after the last
+        step. On the card: a replay of the prefill graph of this B, then
+        ``max_new - 1`` replays of its decode graph."""
+        model, V, S = self.model, self.model.cfg.vocab_size, self.prompt_len
+        tokens = np.ascontiguousarray(tokens, np.int32)
+        B = tokens.shape[0]
+        if params is not self._program_params:
+            self.programs.clear()
+            self._program_params = params
+
+        def prefill(toks):
+            logits, cache, kv_len = model.prefill(params, {"tokens": toks},
+                                                  self._max_len)
             tok = logits[:, :V].argmax(-1).to(torch.int32)
-            toks.append(tok)
-        return torch.stack(toks, dim=1).cpu().numpy()
+            out = torch.empty((B, self.max_new), dtype=torch.int32,
+                              device=model.device)
+            out[:, 0] = tok
+            return {"cache": cache, "kv_len": kv_len, "tok": tok, "out": out}
+
+        def decode():
+            logits, _, kv_len = model.decode_step(params, state["cache"],
+                                                  state["tok"], state["kv_len"])
+            tok = logits[:, :V].argmax(-1).to(torch.int32)
+            # kv_len now counts the cached positions: this token is column kv_len - S
+            state["out"].scatter_(1, (kv_len - S).long()[:, None], tok[:, None])
+            state["tok"].copy_(tok)
+            state["kv_len"].copy_(kv_len)
+
+        pre, dec = ("prefill", B), ("decode", B)
+        if not self.programs.ready(dec):
+            # First use of B on the card: capture prefill, and replay it so
+            # that decode's warm-up and capture read a real state (the
+            # replay of prefill below starts the generation afresh).
+            state = self.programs.run(pre, prefill, [tokens])
+            self.programs.capture(dec, decode)
+        state = self.programs.run(pre, prefill, [tokens])
+        for _ in range(self.max_new - 1):
+            self.programs.run(dec, decode)
+        return state["out"].cpu().numpy()
 
     def _span(self, stage: str, **attrs):
         if self.obs is None:
@@ -203,8 +250,7 @@ class ServingEngine:
                 p = batch[i].prompt_tokens[:self.prompt_len]
                 toks[j, :len(p)] = p
             with self._span("model_generate", batch=len(misses)):
-                out = self._generate(
-                    self.params, torch.from_numpy(toks).to(self.model.device))
+                out = self._generate(self.params, toks)
             texts = ["tok:" + ",".join(map(str, out[j]))
                      for j in range(len(misses))]
             # one batched write-back for every miss in this step

@@ -99,6 +99,35 @@ def test_search_parity_under_random_interleave(kind, hop_impl, emb_dtype):
             assert np.array_equal(a, b)
 
 
+@pytest.mark.parametrize("hop_impl", ["reference", "fused"])
+@pytest.mark.parametrize("emb_dtype", ["float32", "int8"])
+def test_search_batch_parity(hop_impl, emb_dtype):
+    """``search_batch`` (the beam search without TTL classes, its own
+    program and compilation key) against the reference's: ids, scores,
+    hops, rows gathered and the search counters, over bucketed batches
+    and a delta flush between them."""
+    rng = np.random.default_rng(17)
+    r = jh.HNSWIndex(DIM, 256, params=jh.HNSWParams(
+        **_small(emb_dtype=emb_dtype, hop_impl=hop_impl)), seed=5)
+    r.add_batch(_unit(rng, 70), rng.integers(0, 3, 70))
+    t = th.index_from_reference(th.reference_state(r), device="cpu")
+    for step, B in enumerate((2, 8, 11, 5)):
+        q = _unit(rng, B)
+        taus = rng.uniform(0.3, 0.7, B).astype(np.float32)
+        cats = rng.integers(-1, 3, B).astype(np.int32)
+        (ri, rs), (ti, ts) = (x.search_batch(q, taus, categories=cats) for x in (r, t))
+        assert np.array_equal(np.asarray(ri), ti.numpy())
+        np.testing.assert_allclose(np.asarray(rs), ts.numpy(), atol=ATOL, rtol=0)
+        assert int(r.last_search["hops"]) == int(t.last_search["hops"])
+        assert np.array_equal(np.asarray(r.last_search["rows_gathered"]),
+                              t.last_search["rows_gathered"].numpy())
+        assert r.search_stats == t.search_stats
+        if step == 1:
+            v, c = _unit(rng, 3), np.zeros(3, np.int32)
+            assert np.array_equal(r.add_batch(v, c), t.add_batch(v, c))
+    assert r.sync_stats == t.sync_stats
+
+
 @pytest.mark.parametrize("emb_dtype", ["float32", "int8"])
 def test_mirror_exact_and_in_place_after_delta_flush(emb_dtype):
     """The device tables are persistent tensors written in place: after a
