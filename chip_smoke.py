@@ -15,7 +15,14 @@ Phases (any failure exits non-zero and prints no result):
              candidate beside an empty neighbor row, at int8 d 388 (4-byte
              copies) and at d 1,024 with M 64 (chunks through two
              buffers), each also held bit for bit against gather_scores on
-             its candidate ids; scatter_rows as one flush launch over the
+             its candidate ids; gather_scores and gather_scores_masked
+             at (a) random ids, (b) the main path's entry set (8 ids from
+             the first 3,000 rows, the same for all 8 queries, padded to
+             32 with INVALID) and (c) every id INVALID (the no-row
+             floor), each bit for bit and timed beside (d) the earlier
+             design (``gather_scores_serial``) on the same inputs, and
+             held at int8 d 388 and at d 1,024 with B 40 (three
+             query groups); scatter_rows as one flush launch over the
              hnsw fp32 and int8 table sets at R 8 and 64, timed beside one
              launch per table; flat_topk also at the main path's occupancy, a 3,000-row
              valid prefix of 1,048,576, and with exact ties across groups,
@@ -190,6 +197,7 @@ def unit_rows(torch, gen, n, d, device):
 
 
 SPARSE_ROWS = 3_000            # the main path's occupancy (its cache stays below it)
+N_ENTRIES = 8                  # HNSWParams.n_entries: the search's entry set
 TIE_N = 65_536
 # Where each query's planted duplicates sit past its base row: the same
 # 32-row group, the next groups (other warps and blocks), the next chunk
@@ -447,6 +455,148 @@ def check_flush(torch, su, gen, dev, tables) -> dict:
     return out
 
 
+def gather_bound(sets, cats, scales, d: int, masked: bool) -> tuple[float, str]:
+    """The bound of a gather over ``sets`` (mean over them): each distinct
+    live row once (and its int8 scale; masked: the category of each distinct
+    live id and each query's category), the ids, the queries and the scores;
+    2·d operations per scored pair (masked: per pair that passes)."""
+    row_b = d * 4 if scales is None else d + 4
+    nbytes, ops = [], []
+    for idx, q, qc in sets:
+        live = idx[idx >= 0]
+        rows = live.unique().numel()
+        n = live.numel()
+        extra = 0
+        if masked:
+            qce = qc[:, None].expand_as(idx)
+            ok = (idx >= 0) & ((qce < 0) | (cats[idx.clamp(min=0).long()] == qce))
+            n = int(ok.sum())
+            extra = rows * 4 + q.shape[0] * 4
+            rows = idx[ok].unique().numel()
+        nbytes.append(rows * row_b + extra + idx.numel() * 8 + q.numel() * 4)
+        ops.append(2 * d * n)
+    return bound(statistics.mean(nbytes), statistics.mean(ops))
+
+
+def hold_gather(torch, gs, table, scales, cats, sets, what: str) -> dict:
+    """Both entries on ``sets`` of (idx, q, qc): against their plain versions
+    (within SCORE_ATOL, -inf where they have it), the masked scores equal
+    to gather_scores' where the category test passes, and both equal bit
+    for bit to the earlier design (``gather_scores_serial``). Returns the
+    largest error of each entry."""
+    errs = {"gather_scores": 0.0, "gather_scores_masked": 0.0}
+    for idx, q, qc in sets:
+        g_k = gs.gather_scores(table, idx, q, scales)
+        m_k = gs.gather_scores_masked(table, idx, q, cats, qc, scales)
+        g_p = gs.gather_scores_plain(table, idx, q, scales)
+        m_p = gs.gather_scores_masked_plain(table, idx, q, cats, qc, scales)
+        torch.cuda.synchronize()
+        errs["gather_scores"] = max(errs["gather_scores"], max_err(g_k, g_p, torch))
+        errs["gather_scores_masked"] = max(errs["gather_scores_masked"],
+                                           max_err(m_k, m_p, torch))
+        passed = torch.isfinite(m_k)
+        require(torch.equal(m_k[passed], g_k[passed]),
+                f"gather_scores_masked and gather_scores differ ({what})")
+        require(torch.equal(gs.gather_scores_serial(table, idx, q, scales), g_k),
+                f"gather_scores and its earlier design differ ({what})")
+        require(torch.equal(gs.gather_scores_serial(table, idx, q, scales, cats, qc), m_k),
+                f"gather_scores_masked and its earlier design differ ({what})")
+    for name, err in errs.items():
+        require(err <= SCORE_ATOL, f"{name} {what}: err {err}")
+    return errs
+
+
+def check_gather(torch, gs, table, scales, cats, gather_sets, dtype) -> dict:
+    """gather_scores and gather_scores_masked on check_kernels' three cases
+    ("random" (a), "entry_set" (b), "floor" (c)): held (hold_gather), then
+    timed with the earlier design (d) on the same inputs: ``ms``,
+    ``earlier_ms``, ``plain_ms`` and the bound at (a); ``entry_set_ms``,
+    ``earlier_entry_set_ms`` and ``entry_set_bound_ms`` at (b); ``floor_ms``
+    and ``earlier_floor_ms`` at (c)."""
+    d = table.shape[1]
+    errs = {}
+    for label, sets in gather_sets.items():
+        for name, err in hold_gather(torch, gs, table, scales, cats, sets,
+                                     f"{dtype} {label}").items():
+            errs[name] = max(errs.get(name, 0.0), err)
+    calls = {
+        "gather_scores": (
+            lambda s: gs.gather_scores(table, s[0], s[1], scales),
+            lambda s: gs.gather_scores_serial(table, s[0], s[1], scales),
+            lambda s: gs.gather_scores_plain(table, s[0], s[1], scales)),
+        "gather_scores_masked": (
+            lambda s: gs.gather_scores_masked(table, s[0], s[1], cats, s[2], scales),
+            lambda s: gs.gather_scores_serial(table, s[0], s[1], scales, cats, s[2]),
+            lambda s: gs.gather_scores_masked_plain(table, s[0], s[1], cats, s[2], scales)),
+    }
+
+    def timed(fn, label):
+        return graph_ms(torch, [lambda s=s: fn(s) for s in gather_sets[label]])
+
+    out = {}
+    for name, (kern, earlier, plain) in calls.items():
+        masked = name == "gather_scores_masked"
+        b_a = gather_bound(gather_sets["random"], cats, scales, d, masked)
+        b_b = gather_bound(gather_sets["entry_set"], cats, scales, d, masked)
+        row = dict(max_abs_err=errs[name], ms=timed(kern, "random"),
+                   earlier_ms=timed(earlier, "random"), plain_ms=timed(plain, "random"),
+                   bound_ms=b_a[0], bound_by=b_a[1], library_ms=None,
+                   entry_set_ms=timed(kern, "entry_set"),
+                   earlier_entry_set_ms=timed(earlier, "entry_set"),
+                   entry_set_bound_ms=b_b[0], floor_ms=timed(kern, "floor"),
+                   earlier_floor_ms=timed(earlier, "floor"))
+        out[(name, dtype)] = row
+        log(f"kernels: {name} {dtype} random ids (a) {row['ms']:.6f} ms [earlier "
+            f"{row['earlier_ms']:.6f}], entry set (b) {row['entry_set_ms']:.6f} [earlier "
+            f"{row['earlier_entry_set_ms']:.6f}], no-row floor (c) {row['floor_ms']:.6f} "
+            f"[earlier {row['earlier_floor_ms']:.6f}]; bound (a) {b_a[0]:.7f} (b) "
+            f"{b_b[0]:.7f} ms, {b_a[1]}: {row}")
+    return out
+
+
+# Shapes of gather_scores' other paths: (label, N, d, B, int8). int8 d 388
+# rows are 4-byte chunks that are not 16-byte multiples; d 1,024 with B 40
+# (more queries than a warp has lanes) takes three query groups, 16, 16
+# and 8, and rows shared across them.
+GATHER_EDGES = (("int8_d388", 16_384, 388, 8, True),
+                ("float32_d1024_b40", 16_384, 1_024, 40, False),
+                ("int8_d1024_b40", 16_384, 1_024, 40, True))
+
+
+def gather_edge_paths(torch, gs, gen, dev, quantize) -> None:
+    """Both entries on GATHER_EDGES' shapes, held by hold_gather on random
+    ids, on the entry-set shape, and on ids drawn from 12 rows (queries of
+    both groups sharing rows); ids >= N score -inf like padding."""
+    for label, n, d, b, int8 in GATHER_EDGES:
+        table = unit_rows(torch, gen, n, d, dev)
+        scales = None
+        if int8:
+            table, scales = quantize(table)
+        cats = torch.randint(0, 7, (n,), generator=gen, device=dev, dtype=torch.int32)
+        sets = []
+        for _ in range(3):
+            q = unit_rows(torch, gen, b, d, dev)
+            qc = torch.randint(-1, 7, (b,), generator=gen, device=dev, dtype=torch.int32)
+            rand = torch.randint(-1, n, (b, F), generator=gen, device=dev, dtype=torch.int32)
+            f0 = torch.full((F,), -1, dtype=torch.int32, device=dev)
+            f0[:N_ENTRIES] = torch.randperm(n, generator=gen, device=dev)[:N_ENTRIES]
+            f0[N_ENTRIES] = f0[0]
+            pool = torch.randperm(n, generator=gen, device=dev)[:12].to(torch.int32)
+            shared = pool[torch.randint(0, 12, (b, F), generator=gen, device=dev)]
+            shared[torch.rand((b, F), generator=gen, device=dev) < 0.2] = -1
+            sets += [(rand, q, qc), (f0[None, :].expand(b, F).contiguous(), q, qc),
+                     (shared, q, qc)]
+        errs = hold_gather(torch, gs, table, scales, cats, sets, label)
+        over = sets[0][0].clone()
+        over[:, ::5] = n + 5
+        g = gs.gather_scores(table, over, sets[0][1], scales)
+        require(bool(torch.isneginf(g[:, ::5]).all()) and torch.equal(
+            g, gs.gather_scores_serial(table, over, sets[0][1], scales)),
+            f"gather_scores {label}: ids >= N must score -inf")
+        log(f"kernels: gather_scores(_masked) {label} N={n} B={b} K={F}: random ids, the "
+            f"entry set and ids shared across query groups held, max |err| {errs}")
+
+
 def check_kernels(torch, dev) -> dict:
     from repro_torch.core.hnsw import quantize_rows
     from repro_torch.kernels import flat_topk as ft
@@ -483,13 +633,28 @@ def check_kernels(torch, dev) -> dict:
         done = torch.zeros(B, dtype=torch.int32, device=dev)
         if v == 0:
             done[3] = 1                                 # one frozen query
-        idx = fr[:, :M].clone()                         # entry-set style ids
+        idx = fr[:, :M].clone()                         # random ids, 3 padded lanes
         idx[:, -3:] = -1
         variants.append((fr, q, qc, done, idx))
 
+    # gather_scores' cases: (a) each variant's random ids (the hop's frontier
+    # with 3 padded lanes); (b) the main path's entry set (core/hnsw.py:
+    # beam_search): N_ENTRIES ids from the first SPARSE_ROWS rows, the same
+    # for all B queries, padded to the beam F with INVALID; (c) every id
+    # INVALID, the kernel's no-row floor.
+    gather_sets = {"random": [(v[4], v[1], v[2]) for v in variants], "entry_set": [],
+                   "floor": []}
+    egen = torch.Generator(device=dev)     # its own, so the other phases' data stay
+    egen.manual_seed(2027)
+    for fr, q, qc, done, idx in variants:
+        f0 = torch.full((F,), -1, dtype=torch.int32, device=dev)
+        f0[:N_ENTRIES] = torch.randperm(SPARSE_ROWS, generator=egen, device=dev)[:N_ENTRIES]
+        gather_sets["entry_set"].append((f0[None, :].expand(B, F).contiguous(), q, qc))
+        gather_sets["floor"].append((torch.full_like(idx, -1), q, qc))
+
     for dtype, table, scales in (("float32", emb, None),
                                  ("int8", emb_q, emb_s)):
-        errs_fh, errs_gs, errs_gm = [], [], []
+        errs_fh = []
         for fr, q, qc, done, idx in variants:
             ids_k, route_k, res_k = fh.frontier_hop(table, nbrs, meta, fr, q, qc,
                                                     done, scales)
@@ -498,62 +663,17 @@ def check_kernels(torch, dev) -> dict:
             torch.cuda.synchronize()
             require(torch.equal(ids_k, ids_p), f"frontier_hop {dtype}: ids differ")
             errs_fh += [max_err(route_k, route_p, torch), max_err(res_k, res_p, torch)]
-            g_k = gs.gather_scores(table, idx, q, scales)
-            g_p = gs.gather_scores_plain(table, idx, q, scales)
-            errs_gs.append(max_err(g_k, g_p, torch))
             # the shared dot: gather_scores on the hop's candidate ids gives
             # the hop's routing scores bit for bit
             g_on_hop = gs.gather_scores(table, ids_k, q, scales)
             require(torch.equal(g_on_hop, route_k),
                     f"gather_scores and frontier_hop differ ({dtype})")
-            # the masked gather: the plain version's -inf pattern, and
-            # gather_scores's bits wherever the category test passes
-            m_k = gs.gather_scores_masked(table, idx, q, cats, qc, scales)
-            m_p = gs.gather_scores_masked_plain(table, idx, q, cats, qc, scales)
-            errs_gm.append(max_err(m_k, m_p, torch))
-            passed = torch.isfinite(m_k)
-            require(torch.equal(m_k[passed], g_k[passed]),
-                    f"gather_scores_masked and gather_scores differ ({dtype})")
-        err_fh, err_gs, err_gm = max(errs_fh), max(errs_gs), max(errs_gm)
+        err_fh = max(errs_fh)
         require(err_fh <= SCORE_ATOL, f"frontier_hop {dtype}: err {err_fh}")
-        require(err_gs <= SCORE_ATOL, f"gather_scores {dtype}: err {err_gs}")
-        require(err_gm <= SCORE_ATOL, f"gather_scores_masked {dtype}: err {err_gm}")
-        # This run's data: live lanes of every variant, unique rows read.
-        row_b = D * 4 if scales is None else D + 4
-        g_bytes, g_ops, m_bytes, m_ops = [], [], [], []
-        for fr, q, qc, done, idx in variants:
-            gl = idx[idx >= 0]
-            g_bytes.append(gl.unique().numel() * row_b + idx.numel() * 8
-                           + q.numel() * 4)
-            g_ops.append(2 * D * gl.numel())
-            qce = qc[:, None].expand_as(idx)
-            ok = (idx >= 0) & ((qce < 0) | (cats[idx.clamp(min=0).long()] == qce))
-            ml = idx[ok]
-            m_bytes.append(ml.unique().numel() * row_b + gl.unique().numel() * 4
-                           + idx.numel() * 8 + q.numel() * 4 + B * 4)
-            m_ops.append(2 * D * ml.numel())
-        g_fns = [lambda v=v: gs.gather_scores(table, v[4], v[1], scales)
-                 for v in variants]
-        g_plain = [lambda v=v: gs.gather_scores_plain(table, v[4], v[1], scales)
-                   for v in variants]
-        m_fns = [lambda v=v: gs.gather_scores_masked(table, v[4], v[1], cats, v[2], scales)
-                 for v in variants]
-        m_plain = [lambda v=v: gs.gather_scores_masked_plain(table, v[4], v[1], cats, v[2],
-                                                             scales) for v in variants]
-        b_g = bound(statistics.mean(g_bytes), statistics.mean(g_ops))
-        b_m = bound(statistics.mean(m_bytes), statistics.mean(m_ops))
         out[("frontier_hop", dtype)] = time_hop(torch, fh, table, nbrs, meta, variants,
                                                 scales, err_fh)
-        out[("gather_scores", dtype)] = dict(
-            max_abs_err=err_gs, ms=graph_ms(torch, g_fns),
-            plain_ms=graph_ms(torch, g_plain), bound_ms=b_g[0],
-            bound_by=b_g[1], library_ms=None, bytes=statistics.mean(g_bytes))
-        out[("gather_scores_masked", dtype)] = dict(
-            max_abs_err=err_gm, ms=graph_ms(torch, m_fns),
-            plain_ms=graph_ms(torch, m_plain), bound_ms=b_m[0],
-            bound_by=b_m[1], library_ms=None, bytes=statistics.mean(m_bytes))
-        for name in ("frontier_hop", "gather_scores", "gather_scores_masked"):
-            log(f"kernels: {name} {dtype} {out[(name, dtype)]}")
+        log(f"kernels: frontier_hop {dtype} {out[('frontier_hop', dtype)]}")
+        out.update(check_gather(torch, gs, table, scales, cats, gather_sets, dtype))
         hop_dead_lanes(torch, fh, gs, table, nbrs, meta, variants, scales, dtype)
         # the main path's occupancy: its cache holds < SPARSE_ROWS entries,
         # so every frontier and neighbor id falls in the first rows
@@ -566,9 +686,10 @@ def check_kernels(torch, dev) -> dict:
                                                           scales, err)
         log(f"kernels: frontier_hop {dtype}, ids in the first {SPARSE_ROWS} rows "
             f"{out[('frontier_hop', 'prefix', dtype)]}")
-    del emb, emb_q, emb_s, nbrs, valid, cats, meta, variants
+    del emb, emb_q, emb_s, nbrs, valid, cats, meta, variants, gather_sets
     torch.cuda.empty_cache()
     out.update(hop_staging_paths(torch, fh, gs, gen, dev, quantize))
+    gather_edge_paths(torch, gs, egen, dev, quantize)
     torch.cuda.empty_cache()
 
     # -- flat_topk at N=1,048,576, B=8, with categories -----------------
@@ -1173,10 +1294,14 @@ def profile_lookups(torch, cache, queries) -> str:
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     names = ", ".join(f"{e.key[:48]} {e.self_device_time_total / busy_us:.0%}"
                       for e in top)
+    port_us = {}
+    for w, e in port_kernels(prof):
+        port_us[w] = port_us.get(w, 0.0) + e.self_device_time_total / len(batches)
     return (f"{len(batches)} lookup_batch calls: device busy {busy_us / len(batches):.1f} "
             f"us/call of {wall_us / len(batches):.1f} us/call wall under the profiler "
             f"(idle share {1 - busy_us / wall_us:.3f}); top kernels: {names}; the port's "
-            f"kernels in the trace {({k: n for k, n in traced.items() if n})} equal "
+            f"kernels' device us/call { {k: round(v, 3) for k, v in port_us.items()} }; the "
+            f"port's kernels in the trace {({k: n for k, n in traced.items() if n})} equal "
             f"what the {replays} graph replays recorded at capture")
 
 
@@ -1191,21 +1316,28 @@ TRACE_KERNELS = {"frontier_hop": ("frontier_hop_kernel",),
                  "mamba_scan": ("mamba_scan_kernel", "mamba_step_kernel")}
 
 
-def traced_launches(prof) -> dict:
-    """The port's kernels that ran on the card in a torch.profiler window,
-    counted by name (CUPTI records every kernel of a graph replay), by
-    wrapper of TRACE_KERNELS."""
+def port_kernels(prof):
+    """(wrapper of TRACE_KERNELS, event) for each device event of a
+    torch.profiler window made by one of the port's kernels, by name
+    (CUPTI records every kernel of a graph replay)."""
     import re
 
     from torch.autograd import DeviceType
     pats = {w: re.compile("|".join(rf"(?<!\w){n}(?!\w)" for n in names))
             for w, names in TRACE_KERNELS.items()}
-    out = dict.fromkeys(TRACE_KERNELS, 0)
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             for w, pat in pats.items():
                 if pat.search(e.key):
-                    out[w] += e.count
+                    yield w, e
+
+
+def traced_launches(prof) -> dict:
+    """The port's kernels that ran on the card in a torch.profiler window,
+    counted by wrapper of TRACE_KERNELS."""
+    out = dict.fromkeys(TRACE_KERNELS, 0)
+    for w, e in port_kernels(prof):
+        out[w] += e.count
     return out
 
 
@@ -1830,7 +1962,8 @@ def main(argv: list[str]) -> int:
     replayed.update({k: served[arch]["replay_launches"][k]
                      for k, arch in SERVE_KERNELS.items()})
     fields = ("max_abs_err", "ms", "earlier_ms", "plain_ms", "bound_ms", "bound_by",
-              "library_ms", "per_table_ms", "splits", "chunk", "chunk_ms")
+              "library_ms", "entry_set_ms", "earlier_entry_set_ms", "entry_set_bound_ms",
+              "floor_ms", "earlier_floor_ms", "per_table_ms", "splits", "chunk", "chunk_ms")
     rows = []
     for name, (source, replaces) in KERNELS.items():
         key = (name, *MAIN_KEY.get(name, ("float32",)))

@@ -75,4 +75,27 @@ __device__ __forceinline__ float warp_row_score(const void* __restrict__ table,
   return warp_sum(lane_dot_i8(row, q, d, lane)) * scales[row_id];
 }
 
+// One step of lane_dot_f32 / lane_dot_i8, split so that a row chunk can
+// come from somewhere else than the table (gather_scores stages a shared
+// row in shared memory): chunk_f32 converts a chunk as the lane_dot_*
+// functions do (int8 values through the same static_cast), and fma_chunk
+// adds its product with a query chunk to acc by four fmaf in x, y, z, w
+// order. A lane that starts from acc = 0 and calls fma_chunk for its chunks
+// lane, lane + 32, ... in turn, then warp_sum (times the row's scale on
+// int8 rows), scores the pair bit for bit as warp_row_score does.
+__device__ __forceinline__ float4 chunk_f32(float4 a) { return a; }
+
+__device__ __forceinline__ float4 chunk_f32(char4 a) {
+  return make_float4(static_cast<float>(a.x), static_cast<float>(a.y),
+                     static_cast<float>(a.z), static_cast<float>(a.w));
+}
+
+__device__ __forceinline__ float fma_chunk(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  acc = fmaf(a.w, b.w, acc);
+  return acc;
+}
+
 }  // namespace repro_torch

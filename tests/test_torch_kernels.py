@@ -219,11 +219,32 @@ def test_dequantize_parity(rng):
 
 
 # ------------------------------------------------------------ gather_scores
+def _gather_ids(rng, N_, B, K, E):
+    """(B, K) int32 ids: uniform in [-1, N) for E = 0; for E > 0 the main
+    path's entry-set shape (``core/hnsw.py:beam_search``): E distinct live
+    ids broadcast over every query and a tail of -1, here with one id
+    repeated inside the row and one query's row all -1."""
+    if E == 0:
+        return rng.integers(-1, N_, size=(B, K)).astype(np.int32)
+    row = np.full(K, -1, dtype=np.int32)
+    row[:E] = rng.choice(N_, E, replace=False)
+    row[E] = row[0]
+    idx = np.tile(row, (B, 1))
+    idx[-1] = -1
+    return idx
+
+
+# (N, d, B, K, E): E = 0 random ids, E > 0 the entry-set shape.
+GATHER_SHAPES = [pytest.param(256, 128, 4, 8, 0, id="256-128-4-8"),
+                 pytest.param(512, 384, 2, 16, 0, id="512-384-2-16"),
+                 pytest.param(256, 128, 4, 16, 4, id="entry_set-256-128-4-16-4")]
+
+
 @pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("N_,d,B,K", [(256, 128, 4, 8), (512, 384, 2, 16)])
-def test_gather_scores_parity(rng, N_, d, B, K, quant):
+@pytest.mark.parametrize("N_,d,B,K,E", GATHER_SHAPES)
+def test_gather_scores_parity(rng, N_, d, B, K, E, quant):
     table, scales = _table(rng, N_, d, quant)
-    idx = rng.integers(-1, N_, size=(B, K)).astype(np.int32)
+    idx = _gather_ids(rng, N_, B, K, E)
     q = rng.standard_normal((B, d)).astype(np.float32)
     js = None if scales is None else J(scales)
     tsc = None if scales is None else T(scales)
@@ -239,12 +260,12 @@ def test_gather_scores_parity(rng, N_, d, B, K, quant):
 
 
 @pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("N_,d,B,K", [(256, 128, 4, 8), (512, 384, 2, 16)])
-def test_gather_scores_masked_parity(rng, N_, d, B, K, quant):
+@pytest.mark.parametrize("N_,d,B,K,E", GATHER_SHAPES)
+def test_gather_scores_masked_parity(rng, N_, d, B, K, E, quant):
     """The masked variant on the CPU: padding and cross-category candidates
     are -inf, query category -1 is a wildcard."""
     table, scales = _table(rng, N_, d, quant)
-    idx = rng.integers(-1, N_, size=(B, K)).astype(np.int32)
+    idx = _gather_ids(rng, N_, B, K, E)
     q = rng.standard_normal((B, d)).astype(np.float32)
     cats = rng.integers(0, 3, N_).astype(np.int32)
     qc = rng.integers(-1, 3, B).astype(np.int32)
@@ -257,6 +278,9 @@ def test_gather_scores_masked_parity(rng, N_, d, B, K, quant):
                                        interpret=True)
     got = ops.hop_scores(T(table), T(idx), T(q), T(cats), T(qc), tsc)
     _close(got, kern, atol=1e-4)
+    assert torch.equal(
+        tgs.gather_scores_masked(T(table), T(idx), T(q), T(cats), T(qc), tsc),
+        tgs.gather_scores_masked_plain(T(table), T(idx), T(q), T(cats), T(qc), tsc))
 
 
 @pytest.mark.parametrize("quant", [False, True])
@@ -499,3 +523,6 @@ def test_wrappers_raise_off_cpu_instead_of_falling_back():
     with pytest.raises(ValueError):
         tgs.gather_scores_masked(table, idx, q,
                                  torch.empty(16, dtype=torch.int32, device=meta), i32)
+    with pytest.raises(ValueError):  # the earlier design runs on the card only, even for CPU
+        tgs.gather_scores_serial(torch.zeros((16, 8)), torch.zeros((2, 4), dtype=torch.int32),
+                                 torch.zeros((2, 8)))
