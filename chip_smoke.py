@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive repro_torch's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--phases build,kernels,index,main,parity,serve]
+    python3 chip_smoke.py [--phases build,kernels,index,main,parity,shard,sim,serve]
 
 Run from the root of a checkout: it puts ``src/`` on ``sys.path`` itself,
 builds the CUDA kernels into ``build/repro_torch/`` with ``nvcc`` (sm_90a)
@@ -79,19 +79,51 @@ Phases (any failure exits non-zero and prints no result):
              decode step, and the served, hit and model-token counters
              must equal llama's (hits depend only on the text). For each
              model the graphs' tokens for a batch of 8 and one of 3 must
-             equal the eager prefill/decode_step loop's. Then each model
-             at full width and 2 layers: decode against prefill, and card
-             against CPU.
+             equal the eager prefill/decode_step loop's. Then 64 requests
+             in front of llama3.2-3b behind a flat cache of 4 shards and
+             of one: the same counters. Then each model at full width and
+             2 layers: decode against prefill, and card against CPU;
+7. shard   — ``ShardedSemanticCache`` of 4 shards at capacity 1,048,576
+             (each shard's table too), main's traffic and combinations:
+             the first 200 steps, a live ``migrate_category`` of
+             code_generation to another shard and ``rebalance()`` back,
+             each followed by 64 probe queries of it (on flat decided as
+             before the move; an HNSW shard's graph changes with the
+             move, so hnsw only logs how many differ), the last 200
+             steps. Launches per shard as in main, summed over the shards
+             (each shard captures a graph per batch bucket its
+             sub-batches reach); a profiled sharded lookup's trace holds
+             the launches its replays recorded. Flat decides as one cache
+             does; hnsw, probes included, as the same 4-shard run on the
+             CPU, except within 1e-5 of τ. The flat move again at 1,024
+             rows a shard, where it uploads in full: every dropped graph
+             replayed after was captured anew, and the probes decide as
+             before the move. Then two fault runs: a
+             replicated head category with its primary down (failover,
+             no degraded read, every queued write replayed), and an
+             unreplicated category's shard down past
+             ``rebalance_after_s`` (rebuilt on a live shard, then home);
+8. sim     — ``ServingSimulator`` (hybrid, device search, the long-tail
+             benchmark's configuration: capacity 12,000, 4,000 Table-1
+             queries, seed 42) for {hnsw, flat} x {1, 4} shards on the
+             card: launches as in main; flat equal to the same runs on
+             the CPU and 4 shards to one; hybrid against the vector DB
+             and no cache as the reference's simulator tests hold them.
 
 The last lines are a ``{"kernels": [...]}`` object (``launches``: those
 made at wrapper calls in the run of the kernel's path; ``replay_launches``:
 those its graphs' replays made, each graph's recorded launches times its
-replays), the card's name and power limit from nvidia-smi, and
+replays; for the cache kernels also ``shard`` and ``sim``, the same counts
+in the 4-shard card runs of phase 7, with ``per_shard`` replays (delta
+flushes for scatter_rows), and in the hybrid card runs of phase 8), the
+card's name and power limit from nvidia-smi, and
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import gc
 import json
 import statistics
@@ -124,6 +156,20 @@ def require(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@functools.cache
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def log_card(msg: str) -> None:
+    """``log`` with the card's name and power limit."""
+    log(f"{msg} [{card_name()}]")
 
 
 # ---------------------------------------------------------------- timing
@@ -1121,9 +1167,9 @@ def table1_queries(n: int, seed: int):
 
 def serve(cache, clock, queries, batch: int):
     """Serve ``queries`` in batches: lookup_batch, then one insert_batch of
-    the misses. Returns per-query (hit, reason, score, tau) and the host
-    milliseconds of each lookup_batch (which ends in the one device→host
-    copy, so the host clock sees the device work)."""
+    the misses. Returns per-query (hit, reason, score, tau, response) and
+    the host milliseconds of each lookup_batch (which ends in the one
+    device→host copy, so the host clock sees the device work)."""
     import numpy as np
     decisions, lookup_ms = [], []
     for s in range(0, len(queries), batch):
@@ -1135,7 +1181,7 @@ def serve(cache, clock, queries, batch: int):
         res = cache.lookup_batch(emb, cats)
         lookup_ms.append((time.perf_counter() - t0) * 1e3)
         decisions += [(r.hit, r.reason, r.score,
-                       cache.policies.effective(c).threshold)
+                       cache.policies.effective(c).threshold, r.response)
                       for r, c in zip(res, cats)]
         miss = [i for i, r in enumerate(res) if not r.hit and r.reason != "compliance"]
         if miss:
@@ -1261,42 +1307,95 @@ def check_index(torch) -> None:
 
 
 # ---------------------------------------------------------------- phase 4
-def profile_lookups(torch, cache, queries) -> str:
-    """Device time of ``lookup_batch`` under torch.profiler: the summed
-    self device time of the kernels against the host wall time of the
-    same window (the profiler's own host cost included), and the largest
-    kernels by name. The port's kernels in the trace must be exactly what
-    the search graphs replayed in the window recorded at their capture."""
-    import numpy as np
+def indexes(cache) -> list:
+    """The indexes a cache searches: its own, or each shard's."""
+    return [s.index for s in getattr(cache, "shards", [cache])]
+
+
+MARK_CYCLES = 40_000_000       # the trace's marker kernel spins ~20 ms
+
+
+@contextlib.contextmanager
+def device_trace(torch, lead_in):
+    """The card's events of the ``with`` block under torch.profiler: a
+    list of (name, duration ns), filled when the block ends. The session
+    runs ``lead_in()`` and a marker kernel (``torch.cuda._sleep``) first,
+    and only the events after the marker are kept: the first device
+    events of a session can go missing from its trace (on the card, in a
+    process that has run for minutes: a lookup's input copy and first
+    kernels, a graph replay's first hops), so the block's own work must
+    not be the first the session sees."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    batches = [queries[s:s + 8] for s in range(0, len(queries), 8)]
-    programs = cache.index.programs
-    before = dict(programs.replays)
+    events = []
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        lead_in()
+        torch.cuda._sleep(MARK_CYCLES)
+        torch.cuda.synchronize()
+        yield events
+        torch.cuda.synchronize()
+    found = sorted((e.start_ns(), e.name(), e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    marks = [k for k, e in enumerate(found) if "spin_kernel" in e[1]]
+    require(marks, "device trace: the marker kernel is not in the trace")
+    events.extend((name, dur) for _, name, dur in found[marks[-1] + 1:])
+
+
+def device_burst(torch) -> None:
+    """1,000 tiny kernels on the current stream: a trace's lead-in where
+    the traced work cannot run twice."""
+    x = torch.zeros(1, device="cuda")
+    for _ in range(1_000):
+        x.add_(1.0)
+
+
+def profile_lookups(torch, cache, queries) -> str:
+    """Device time of ``lookup_batch`` under torch.profiler (the same
+    lookups once before as the trace's lead-in): the summed device time
+    of the kernels and copies against the host wall time of the same
+    window (the profiler's own host cost included), and the largest
+    kernels by name. The port's kernels in the trace must be exactly what
+    the search graphs replayed in the window (each shard's, for a sharded
+    cache) recorded at their capture."""
+    import numpy as np
+    batches = [queries[s:s + 8] for s in range(0, len(queries), 8)]
+    holders = [ix.programs for ix in indexes(cache)]
+
+    def lookups():
         for part in batches:
             cache.lookup_batch(np.stack([q.embedding for q in part]),
                                [q.category for q in part])
+
+    with device_trace(torch, lookups) as events:
+        before = [dict(p.replays) for p in holders]
+        t0 = time.perf_counter()
+        lookups()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    replays = {k: n - before.get(k, 0) for k, n in programs.replays.items()
-               if n != before.get(k, 0)}
-    traced, want = traced_launches(prof), recorded_launches(programs, replays)
+    want, replays = dict.fromkeys(TRACE_KERNELS, 0), []
+    for programs, was in zip(holders, before):
+        ran = {k: n - was.get(k, 0) for k, n in programs.replays.items()
+               if n != was.get(k, 0)}
+        replays.append(ran)
+        for k, n in recorded_launches(programs, ran).items():
+            want[k] += n
+    replays = replays[0] if len(replays) == 1 else replays
+    traced = traced_launches(events)
     require(traced == want, f"lookups under the profiler: the trace holds {traced} "
             f"launches of the port's kernels, the {replays} graph replays recorded {want}")
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    by_name = {}
+    for name, dur in events:
+        by_name[name] = by_name.get(name, 0) + dur / 1e3
+    busy_us = sum(by_name.values())
     if busy_us == 0:
         return "device time not measured (the profiler saw no device events)"
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    names = ", ".join(f"{e.key[:48]} {e.self_device_time_total / busy_us:.0%}"
-                      for e in top)
+    top = sorted(by_name.items(), key=lambda x: -x[1])[:5]
+    names = ", ".join(f"{k[:48]} {us / busy_us:.0%}" for k, us in top)
     port_us = {}
-    for w, e in port_kernels(prof):
-        port_us[w] = port_us.get(w, 0.0) + e.self_device_time_total / len(batches)
+    for w, _, dur in port_kernels(events):
+        port_us[w] = port_us.get(w, 0.0) + dur / 1e3 / len(batches)
     return (f"{len(batches)} lookup_batch calls: device busy {busy_us / len(batches):.1f} "
             f"us/call of {wall_us / len(batches):.1f} us/call wall under the profiler "
             f"(idle share {1 - busy_us / wall_us:.3f}); top kernels: {names}; the port's "
@@ -1316,28 +1415,25 @@ TRACE_KERNELS = {"frontier_hop": ("frontier_hop_kernel",),
                  "mamba_scan": ("mamba_scan_kernel", "mamba_step_kernel")}
 
 
-def port_kernels(prof):
-    """(wrapper of TRACE_KERNELS, event) for each device event of a
-    torch.profiler window made by one of the port's kernels, by name
+def port_kernels(events):
+    """(wrapper of TRACE_KERNELS, name, duration ns) for each of a
+    ``device_trace``'s events made by one of the port's kernels, by name
     (CUPTI records every kernel of a graph replay)."""
     import re
-
-    from torch.autograd import DeviceType
     pats = {w: re.compile("|".join(rf"(?<!\w){n}(?!\w)" for n in names))
             for w, names in TRACE_KERNELS.items()}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            for w, pat in pats.items():
-                if pat.search(e.key):
-                    yield w, e
+    for name, dur in events:
+        for w, pat in pats.items():
+            if pat.search(name):
+                yield w, name, dur
 
 
-def traced_launches(prof) -> dict:
-    """The port's kernels that ran on the card in a torch.profiler window,
-    counted by wrapper of TRACE_KERNELS."""
+def traced_launches(events) -> dict:
+    """The port's kernels among a ``device_trace``'s events, counted by
+    wrapper of TRACE_KERNELS."""
     out = dict.fromkeys(TRACE_KERNELS, 0)
-    for w, e in port_kernels(prof):
-        out[w] += e.count
+    for w, _, _ in port_kernels(events):
+        out[w] += 1
     return out
 
 
@@ -1409,6 +1505,38 @@ def probe_graph_vs_eager(torch, cache, kind: str, probe) -> dict:
     return times
 
 
+def hold_launches(cache, kind: str, counts: dict, label: str) -> dict:
+    """A run's launches over every index of ``cache`` (each shard's): each
+    search replayed a graph; frontier_hop max_hops times and gather_scores
+    once (hnsw), or flat_topk once, at every capture's warm-up (wrapper
+    calls) and in every replay (each graph's recorded launches x its
+    replays); scatter_flush once per delta flush. Returns the replayed
+    launches in total and per shard, and the captures per shard and
+    batch bucket."""
+    idx = indexes(cache)
+    searches = [ix.search_stats["searches"] for ix in idx]
+    replays = [sum(ix.programs.replays.values()) for ix in idx]
+    captures = [sum(ix.programs.captures.values()) for ix in idx]
+    require(replays == searches, f"{label}: searches {searches}, graph replays {replays}")
+    per_shard = [recorded_launches(ix.programs, ix.programs.replays) for ix in idx]
+    replayed = {k: sum(r[k] for r in per_shard) for k in TRACE_KERNELS}
+    per = ({"frontier_hop": idx[0].p.max_hops, "gather_scores": 1}
+           if kind == "hnsw" else {"flat_topk": 1})
+    for k, n in per.items():
+        require(counts[k] == n * sum(captures) and replayed[k] == n * sum(replays) > 0,
+                f"{label}: {k} launched {counts[k]} times at wrapper calls and "
+                f"{replayed[k]} in graph replays, not {n * sum(captures)} "
+                f"({sum(captures)} warm-ups) and {n * sum(replays)} ({sum(replays)} searches)")
+    flushes = [ix.sync_stats["delta_updates"] for ix in idx]
+    require(counts["scatter_flush"] == sum(flushes) > 0,
+            f"{label}: {counts['scatter_flush']} scatter launches for {flushes} delta "
+            f"flushes (one launch a flush)")
+    return dict(replayed=replayed, replays=replays, flushes=flushes,
+                per_shard={k: [r[k] for r in per_shard] for k in per},
+                buckets=[{key[0]: n for key, n in sorted(ix.programs.captures.items())}
+                         for ix in idx])
+
+
 def run_main_path(torch, counters, steps: int) -> tuple[dict, dict]:
     """The main path's run (see the module docstring). Returns the
     launches made at wrapper calls and those made in graph replays, by
@@ -1432,28 +1560,12 @@ def run_main_path(torch, counters, steps: int) -> tuple[dict, dict]:
             for k in counts:
                 launches[k] += counts[k]
             index, programs = cache.index, cache.index.programs
-            searches = index.search_stats["searches"]
-            replays = sum(programs.replays.values())
-            captures = sum(programs.captures.values())
-            require(replays == searches and captures >= 1,
-                    f"main {kind}/{dtype}: {searches} searches, {replays} graph replays")
             # Every search replays a graph. The wrappers launched at the
             # captures' warm-ups only; the replays ran what each capture
             # recorded (held against a profiled window in profile_lookups).
-            replayed = recorded_launches(programs, programs.replays)
+            replayed = hold_launches(cache, kind, counts, f"main {kind}/{dtype}")["replayed"]
             for k in replayed:
                 replayed_all[k] += replayed[k]
-            per = ({"frontier_hop": index.p.max_hops, "gather_scores": 1}
-                   if kind == "hnsw" else {"flat_topk": 1})
-            for k, n in per.items():
-                require(counts[k] == n * captures and replayed[k] == n * searches > 0,
-                        f"main {kind}/{dtype}: {k} launched {counts[k]} times at wrapper "
-                        f"calls and {replayed[k]} in graph replays, not {n * captures} "
-                        f"({captures} warm-ups) and {n * searches} ({searches} searches)")
-            flushes = cache.sync_stats["delta_updates"]
-            require(counts["scatter_flush"] == flushes > 0,
-                    f"main {kind}/{dtype}: {counts['scatter_flush']} scatter launches for "
-                    f"{flushes} delta flushes (one launch a flush)")
             require(all(np.isfinite(d[2]) or not d[0] for d in decisions),
                     "main: a hit without a finite score")
             rates = {c: round(st.hit_rate, 4)
@@ -1495,6 +1607,430 @@ def check_card_vs_cpu(steps: int) -> None:
             hits = sum(1 for d in runs["cuda"] if d[0])
             log(f"parity {kind}/{dtype}: {len(qs)} queries, {hits} hits, card and "
                 f"CPU agree")
+
+
+# ---------------------------------------------------------------- phase 7
+N_SHARDS = 4
+HEAD = "code_generation"        # Table-1's largest quota: the category moved
+UNREPLICATED = "api_documentation"   # the only category on its shard
+MOVE_SHARD_CAPACITY = 1_024     # small enough that moving HEAD passes the
+                                # rebuild threshold (a quarter of the table)
+
+
+def make_sharded(kind: str, dtype: str, device: str, clock=None, **kw):
+    """A 4-shard cache at capacity 1,048,576 (each shard's table too,
+    unless ``shard_capacity`` says otherwise) over the Table-1 policies."""
+    from repro_torch.core.clock import SimClock
+    from repro_torch.core.policy import PolicyEngine, paper_policies
+    from repro_torch.core.shard import ShardedSemanticCache
+    clock = clock or SimClock()
+    cache = ShardedSemanticCache(PolicyEngine(paper_policies()), n_shards=N_SHARDS,
+                                 capacity=FLAT_N, clock=clock, index_kind=kind,
+                                 use_device=True, emb_dtype=dtype, device=device, **kw)
+    return cache, clock
+
+
+def probe_decisions(cache, probe) -> list:
+    """(hit, reason, score, tau, response) of ``probe`` (``serve``'s
+    tuples), looked up in batches of 8 and not inserted."""
+    import numpy as np
+    out = []
+    for s in range(0, len(probe), 8):
+        part = probe[s:s + 8]
+        cats = [q.category for q in part]
+        res = cache.lookup_batch(np.stack([q.embedding for q in part]), cats)
+        out += [(r.hit, r.reason, r.score, cache.policies.effective(c).threshold,
+                 r.response) for r, c in zip(res, cats)]
+    return out
+
+
+def sync_state(cache) -> list:
+    return [(ix.sync_stats["full_uploads"], dict(ix.programs.captures),
+             dict(ix.programs.replays)) for ix in indexes(cache)]
+
+
+def recaptured(cache, state, label: str) -> list:
+    """The shards whose full upload since ``state`` dropped their graphs;
+    every graph such a shard replayed since was captured anew."""
+    full = []
+    for i, (ix, (uploads, caps, reps)) in enumerate(zip(indexes(cache), state)):
+        if ix.sync_stats["full_uploads"] == uploads:
+            continue
+        full.append(i)
+        ran = [k for k, n in ix.programs.replays.items() if n != reps.get(k, 0)]
+        require(ran and all(ix.programs.captures.get(k, 0) > caps.get(k, 0) for k in ran),
+                f"{label}: shard {i} uploaded in full but replayed {ran} without "
+                f"capturing them anew (captures {ix.programs.captures}, before {caps})")
+    return full
+
+
+def decided(d) -> tuple:
+    """What a decision serves: hit, reason, response."""
+    return d[0], d[1], d[4]
+
+
+def move_head(cache, probe, label: str) -> dict:
+    """A live migration mid-run: HEAD's probe queries, then
+    ``migrate_category`` of HEAD to the lightest other shard, the probes
+    again, then ``rebalance()`` (which re-plans and moves HEAD home), the
+    probes again. On flat each probe decides as before the move (an HNSW
+    shard's graph is rebuilt by the move, so it may not: the count is
+    logged). A shard whose full upload dropped its graphs recaptured
+    every graph it replayed after."""
+    before = probe_decisions(cache, probe)
+    src = cache.shard_of(HEAD)
+    dst = min((s for s in range(N_SHARDS) if s != src),
+              key=lambda s: (cache.planner.shard_bytes[s], s))
+    state = sync_state(cache)
+    mig = cache.migrate_category(HEAD, dst)
+    require(mig.done and cache.shard_of(HEAD) == dst and mig.moved > 0
+            and mig.journal == ["fence", "catchup", "reconcile", "flip", "purge", "unfence"],
+            f"{label}: migration of {HEAD} {src} -> {dst} ended at {mig.journal}")
+    moved = probe_decisions(cache, probe)
+    full = recaptured(cache, state, label)
+    state = sync_state(cache)
+    moves = cache.rebalance()
+    require(moves == {HEAD: (dst, src)} and cache.shard_of(HEAD) == src,
+            f"{label}: rebalance() moved {moves}, not {HEAD} back to {src}")
+    back = probe_decisions(cache, probe)
+    full_back = recaptured(cache, state, label)
+    differ = {what: sum(decided(x) != decided(y) for x, y in zip(got, before))
+              for what, got in (("after the move", moved), ("after rebalance()", back))}
+    if cache.index_kind == "flat":
+        require(not any(differ.values()) and [x[2] for x in moved] == [x[2] for x in back]
+                == [x[2] for x in before],
+                f"{label}: {HEAD}'s {len(before)} probes decided differently: {differ}")
+    return dict(src=src, dst=dst, moved=mig.moved, probes=len(probe),
+                hits=sum(x[0] for x in before), differ=differ, full_uploads=full,
+                full_uploads_back=full_back, decisions=before + moved + back)
+
+
+def run_sharded(torch, counters, kind: str, dtype: str, qs, device: str, **kw) -> tuple:
+    """``qs`` through a 4-shard cache on ``device``: the first half, the
+    live move of HEAD (``move_head``, probed with the last 64 HEAD queries
+    served, most of them cached), the second half. Returns the served
+    traffic's decisions, its lookup_batch host ms, the cache and the
+    move's log (with every decision in the order made)."""
+    cache, clock = make_sharded(kind, dtype, device, **kw)
+    half = len(qs) // 16 * 8
+    first, ms1 = serve(cache, clock, qs[:half], 8)
+    probe = [q for q in qs[:half] if q.category == HEAD][-64:]
+    move = move_head(cache, probe, f"shard {kind}/{dtype} on {device}")
+    second, ms2 = serve(cache, clock, qs[half:], 8)
+    move["decisions"] = first + move["decisions"] + second
+    return first + second, ms1 + ms2, cache, move
+
+
+def run_outages(torch, counters, qs) -> dict:
+    """Two 4-shard hnsw/float32 runs of ``qs`` on the card behind a fault
+    injector. (a) HEAD replicated on 2 shards and its primary down from 20
+    to 40 s: every read of the down shard fails over, nothing degrades,
+    the replicas never diverge, and every write queued for the down
+    replica replays. (b) UNREPLICATED's shard down from 20 to 60 s,
+    ``rebalance_after_s`` 5: ``OutageRebalance`` rebuilds it on a live
+    shard from the store (adopted rows, one delta flush), and it returns
+    home once its shard recovers."""
+    from repro_torch.core.clock import SimClock
+    from repro_torch.core.faults import FaultInjector, FaultSchedule
+    from repro_torch.core.policy import PolicyEngine, paper_policies
+    from repro_torch.core.shard import ShardPlanner
+    out = {}
+    planner = ShardPlanner.from_policies(PolicyEngine(paper_policies()), N_SHARDS, FLAT_N,
+                                         replication={HEAD: 2})
+    down = planner.shard_of(HEAD)
+    pe = PolicyEngine(paper_policies())
+    alone = [c for c in pe.categories() if planner.replica_set(c) == [down]
+             and pe.get(c).allow_caching and pe.get(c).quota > 0]
+    require(not alone, f"outage: shard {down} holds unreplicated {alone}")
+    for fn in counters.values():
+        fn.launches = 0
+    clock = SimClock()
+    faults = FaultInjector(FaultSchedule(shard_outages=[(20.0, 40.0, down)]), clock)
+    cache, _ = make_sharded("hnsw", "float32", "cuda", clock=clock, faults=faults,
+                            planner=planner, replication={HEAD: 2})
+    decisions, _ = serve(cache, clock, qs, 8)
+    hold_launches(cache, "hnsw", {k: fn.launches for k, fn in counters.items()},
+                  "outage (replicated)")
+    fs, ov = dict(cache.fault_stats), cache.metrics.snapshot()["_overall"]
+    require(ov["availability"] == 1.0 and fs["degraded_misses"] == 0
+            and fs["failover_reads"] > 0 and fs["replica_divergence"] == 0
+            and fs["wb_replayed"] == fs["wb_enqueued"] > 0,
+            f"outage (replicated, shard {down} down 20-40 s): availability "
+            f"{ov['availability']}, fault_stats {fs}")
+    out["replicated"] = dict(down=down, replica_set=cache.replica_set(HEAD),
+                             hits=sum(d[0] for d in decisions), **fs)
+    log_card(f"shard outage: {HEAD} on shards {cache.replica_set(HEAD)}, shard {down} down "
+        f"20-40 s of {clock.now():.1f} s: availability {ov['availability']}, "
+        f"{sum(d[0] for d in decisions)} hits of {len(decisions)}, fault_stats {fs}")
+    del cache
+    for fn in counters.values():
+        fn.launches = 0
+    down = ShardPlanner.from_policies(pe, N_SHARDS, FLAT_N).shard_of(UNREPLICATED)
+    clock = SimClock()
+    faults = FaultInjector(FaultSchedule(shard_outages=[(20.0, 60.0, down)]), clock)
+    cache, _ = make_sharded("hnsw", "float32", "cuda", clock=clock, faults=faults,
+                            rebalance_after_s=5.0)
+    split = next(i for i, q in enumerate(qs) if q.timestamp >= 30.0) // 8 * 8
+    first, _ = serve(cache, clock, qs[:split], 8)
+    home = cache.shard_of(UNREPLICATED)
+    rebuilt = cache.shards[home].category_count(UNREPLICATED)
+    require(cache.fault_stats["outage_rebalances"] >= 1 and home != down and rebuilt > 0,
+            f"outage (unreplicated, shard {down} down 20-60 s): at {clock.now():.1f} s "
+            f"{UNREPLICATED} is on shard {home} with {rebuilt} entries, fault_stats "
+            f"{cache.fault_stats}")
+    second, _ = serve(cache, clock, qs[split:], 8)
+    hold_launches(cache, "hnsw", {k: fn.launches for k, fn in counters.items()},
+                  "outage (rebuilt)")
+    fs = dict(cache.fault_stats)
+    require(fs["reabsorbed_categories"] >= 1 and cache.shard_of(UNREPLICATED) == down
+            and fs["wb_replayed"] == fs["wb_enqueued"],
+            f"outage (unreplicated): after recovery {UNREPLICATED} is on shard "
+            f"{cache.shard_of(UNREPLICATED)}, fault_stats {fs}")
+    out["rebuilt"] = dict(down=down, rebuilt_on=home, rebuilt_entries=rebuilt, **fs)
+    log_card(f"shard outage: {UNREPLICATED} alone on shard {down}, down 20-60 s, "
+        f"rebalance_after_s 5: rebuilt from the store on shard {home} ({rebuilt} entries "
+        f"at {qs[split - 1].timestamp:.1f} s), home again after recovery; "
+        f"degraded misses {fs['degraded_misses']}, fault_stats {fs}")
+    del cache
+    return out
+
+
+def run_shard_path(torch, counters, steps: int) -> dict:
+    """Phase 7 (see the module docstring). Returns, for the cache kernels,
+    the launches of the four 4-shard card runs: at wrapper calls, in graph
+    replays, and in replays per shard."""
+    import numpy as np
+    qs = table1_queries(steps * 8, seed=1)
+    total = {k: dict(launches=0, replay_launches=0, per_shard=[0] * N_SHARDS)
+             for k in ("frontier_hop", "gather_scores", "flat_topk", "scatter_rows")}
+    for kind in ("hnsw", "flat"):
+        for dtype in ("float32", "int8"):
+            label = f"shard {kind}/{dtype}"
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            card, ms, cache, move = run_sharded(torch, counters, kind, dtype, qs, "cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            counts = {k: fn.launches for k, fn in counters.items()}
+            held = hold_launches(cache, kind, counts, label)
+            for k in total:
+                w = "scatter_flush" if k == "scatter_rows" else k
+                total[k]["launches"] += counts[w]
+                total[k]["replay_launches"] += held["replayed"].get(k, 0)
+                per = held["flushes"] if k == "scatter_rows" else held["per_shard"].get(
+                    k, [0] * N_SHARDS)
+                total[k]["per_shard"] = [a + b for a, b in zip(total[k]["per_shard"], per)]
+            n_lookups = len(ms) + 3 * -(-move["probes"] // 8)
+            log_card(f"{label}: {len(qs)} queries in {wall:.2f} s; lookup_batch ms p50 "
+                f"{np.percentile(ms, 50):.3f} p99 {np.percentile(ms, 99):.3f}; search "
+                f"replays per lookup_batch {sum(held['replays']) / n_lookups:.2f} "
+                f"(per shard {held['replays']}); placement {cache.planner.assignments}")
+            log_card(f"{label}: captures per shard and batch bucket {held['buckets']}; "
+                f"launches in graph replays {({k: n for k, n in held['replayed'].items() if n})}"
+                f" (per shard {held['per_shard']}), at wrapper calls "
+                f"{({k: n for k, n in counts.items() if n})}; delta flushes per shard "
+                f"{held['flushes']}")
+            log_card(f"{label}: sync_stats {cache.sync_stats}")
+            log_card(f"{label}: device memory {peak / 2**30:.2f} GiB peak (4 shards of "
+                f"{FLAT_N:,} rows, graphs included); entries per shard "
+                f"{[len(s) for s in cache.shards]}")
+            log_card(f"{label}: live move of {HEAD} shard {move['src']} -> {move['dst']} "
+                f"({move['moved']} entries) and back by rebalance(): of its "
+                f"{move['probes']} probes ({move['hits']} hits before), decided "
+                f"otherwise than before the move: {move['differ']}; full uploads during "
+                f"the move on shards {move['full_uploads']}, {move['full_uploads_back']}")
+            log_card(f"{label}: profile: {profile_lookups(torch, cache, qs[-80:])}")
+            del cache
+            gc.collect()
+            torch.cuda.empty_cache()
+            one, clock = make_cache(kind, dtype, FLAT_N, "cuda")
+            single, one_ms = serve(one, clock, qs, 8)
+            del one
+            gc.collect()
+            torch.cuda.empty_cache()
+            diff = [i for i, (a, b) in enumerate(zip(card, single))
+                    if (a[0], a[1], a[4]) != (b[0], b[1], b[4])]
+            if kind == "flat":
+                require(not diff and [a[2] for a in card] == [b[2] for b in single],
+                        f"{label}: {len(diff)} decisions differ from one cache's "
+                        f"(first at query {diff[:1]})")
+            log_card(f"{label}: 1-shard lookup_batch ms p50 {np.percentile(one_ms, 50):.3f} "
+                f"(4 shards: {np.percentile(ms, 50):.3f}); decisions (hit, reason, "
+                f"response) that differ from one cache's: {len(diff)} of {len(card)}")
+            if kind == "hnsw":
+                _, _, cpu_cache, cpu_move = run_sharded(torch, counters, kind, dtype, qs,
+                                                        "cpu")
+                del cpu_cache
+                gc.collect()
+                compare_decisions(move["decisions"], cpu_move["decisions"], label)
+                log_card(f"{label}: the same 4-shard run on the CPU, move and probes "
+                         f"included, decides as the card (queries within {TAU_BAND} of "
+                         f"tau aside)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The move again with shard tables of 1,024 rows: moving HEAD now
+    # passes the rebuild threshold, so the target (and then the source)
+    # uploads in full and drops its graphs. On flat the probes decide as
+    # before the move only if the new graphs read the new tables.
+    for fn in counters.values():
+        fn.launches = 0
+    _, _, cache, move = run_sharded(torch, counters, "flat", "float32", qs, "cuda",
+                                    shard_capacity=MOVE_SHARD_CAPACITY)
+    require(move["full_uploads"] and move["full_uploads_back"],
+            f"shard move at {MOVE_SHARD_CAPACITY} rows a shard: no full upload "
+            f"({move})")
+    hold_launches(cache, "flat", {k: fn.launches for k, fn in counters.items()},
+                  "shard move with full uploads")
+    log_card(f"shard flat/float32 at {MOVE_SHARD_CAPACITY:,} rows a shard: moving {HEAD} "
+        f"({move['moved']} entries) uploaded shards {move['full_uploads']} in full, and "
+        f"moving it back shards {move['full_uploads_back']}; each recaptured every graph "
+        f"it replayed after (captures per shard and bucket "
+        f"{[dict(ix.programs.captures) for ix in indexes(cache)]}), and the probes "
+        f"decided as before the move")
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_outages(torch, counters, qs)
+    return total
+
+
+# ---------------------------------------------------------------- phase 8
+SIM_QUERIES = 4_000            # bench_longtail.run_scenarios' count
+
+
+def simulate(device, **kw):
+    """``bench_longtail.run``'s simulator: paper_policies(), capacity
+    12,000, Table-1 traffic at 30 queries/s from seed 42, with the device
+    search; ``device`` None is the card."""
+    from repro_torch.core.policy import PolicyEngine, paper_policies
+    from repro_torch.core.workload import TABLE1_WORKLOAD, WorkloadGenerator
+    from repro_torch.serving.simulator import ServingSimulator, SimConfig
+    sim = ServingSimulator(PolicyEngine(paper_policies()), SimConfig(
+        cache_capacity=12000, use_device=True, device=device, **kw))
+    t0 = time.perf_counter()
+    res = sim.run(WorkloadGenerator(TABLE1_WORKLOAD, rate_per_s=30.0, seed=42), SIM_QUERIES)
+    return res, sim, time.perf_counter() - t0
+
+
+def sim_counters(res, sync: bool = True) -> dict:
+    out = dict(summary=res.summary(), per_category=res.per_category,
+               model_calls=res.model_calls, resident=res.mean_resident_entries)
+    if sync:
+        out["index_sync"] = res.index_sync
+    return out
+
+
+def run_sim(torch, counters) -> dict:
+    """Phase 8 (see the module docstring). Returns the cache kernels'
+    launches in the four hybrid card runs (at wrapper calls, in graph
+    replays)."""
+    total = {k: dict(launches=0, replay_launches=0)
+             for k in ("frontier_hop", "gather_scores", "flat_topk", "scatter_rows")}
+    card = {}
+    for kind in ("hnsw", "flat"):
+        for n in (1, N_SHARDS):
+            label = f"sim hybrid {kind} {n} shard(s)"
+            for fn in counters.values():
+                fn.launches = 0
+            res, sim, wall = simulate(None, architecture="hybrid", index_kind=kind,
+                                      n_shards=n)
+            counts = {k: fn.launches for k, fn in counters.items()}
+            held = hold_launches(sim.cache, kind, counts, label)
+            for k in total:
+                w = "scatter_flush" if k == "scatter_rows" else k
+                total[k]["launches"] += counts[w]
+                total[k]["replay_launches"] += held["replayed"].get(k, 0)
+            card[kind, n] = res
+            rates = {c: round(d["hit_rate"], 4) for c, d in sorted(res.per_category.items())}
+            log_card(f"{label}: {SIM_QUERIES} queries in {wall:.2f} s on the card; summary "
+                f"{res.summary()}; model calls {res.model_calls}")
+            log_card(f"{label}: hit rates {rates}; captures per shard and batch bucket "
+                f"{held['buckets']}; search replays {sum(held['replays'])}, delta flushes "
+                f"{sum(held['flushes'])}")
+            del sim
+            gc.collect()
+    for n in (1, N_SHARDS):
+        res, _, wall = simulate("cpu", architecture="hybrid", index_kind="flat", n_shards=n)
+        require(sim_counters(res) == sim_counters(card["flat", n]),
+                f"sim flat {n} shard(s): the card's counters differ from the CPU's: "
+                f"{res.summary()} on the CPU, {card['flat', n].summary()} on the card")
+        log_card(f"sim hybrid flat {n} shard(s): the CPU run ({wall:.2f} s) gives the card's "
+            f"summary, per-category rows, model calls and index sync")
+    require(sim_counters(card["flat", 1], False) == sim_counters(card["flat", N_SHARDS], False),
+            f"sim flat: {N_SHARDS} shards {card['flat', N_SHARDS].summary()} differ from "
+            f"one cache {card['flat', 1].summary()}")
+    hnsw_1, hnsw_n = (sim_counters(card["hnsw", n], False) for n in (1, N_SHARDS))
+    log_card(f"sim flat: {N_SHARDS} shards give one cache's counters; hnsw: "
+        f"{'the same' if hnsw_1 == hnsw_n else 'different'} counters "
+        f"({card['hnsw', 1].summary()} against {card['hnsw', N_SHARDS].summary()})")
+    hy = card["flat", 1]
+    vdb, _, _ = simulate(None, architecture="vdb")
+    none, _, _ = simulate(None, architecture="none")
+    t_fp = 500.0          # a false positive is asked again: one more model call
+    hy_q = hy.mean_latency_ms + hy.false_positives / hy.n_queries * t_fp
+    vdb_q = vdb.mean_latency_ms + vdb.false_positives / vdb.n_queries * t_fp
+    require(hy.mean_latency_ms < none.mean_latency_ms and hy.model_cost < none.model_cost
+            and vdb.false_positives > 5 * max(1, hy.false_positives) and hy_q < vdb_q
+            and vdb.mean_latency_ms > 30.0,
+            f"sim: hybrid {hy.summary()} against vdb {vdb.summary()} and none "
+            f"{none.summary()}")
+    log_card(f"sim architectures: mean latency ms hybrid {hy.mean_latency_ms:.2f}, vdb "
+        f"{vdb.mean_latency_ms:.2f}, none {none.mean_latency_ms:.2f}; with {t_fp:.0f} ms a "
+        f"false positive hybrid {hy_q:.2f}, vdb {vdb_q:.2f}; false positives hybrid "
+        f"{hy.false_positives}, vdb {vdb.false_positives}; model cost hybrid "
+        f"{hy.model_cost:.2f}, none {none.model_cost:.2f}")
+    rows = ", ".join(f"{c} {d['hit_rate']:.3f} ({d['lookups']} lookups)"
+                     for c, d in sorted(hy.per_category.items(), key=lambda x: -x[1]["lookups"]))
+    log_card(f"sim long-tail table (hybrid flat, the card): {rows}")
+    return total
+
+
+# ---------------------------------------------------------------- phase 6, sharded
+def run_sharded_serve(torch, counters, n_requests: int) -> dict:
+    """``run_serving`` in front of full-width llama3.2-3b with a flat cache
+    of 4 shards and of one, on the same requests: the same served,
+    hit-rate, model-token and per-category counters; flat_topk and the
+    delta flush launched on the card in both."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_serving
+    cfg = get_config("llama3.2-3b")
+    outs = {}
+    for n in (1, N_SHARDS):
+        gc.collect()
+        torch.cuda.empty_cache()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = run_serving(cfg, n_requests=n_requests, max_batch=8, prompt_len=64,
+                          max_new_tokens=16, seed=0, index_kind="flat", use_device=True,
+                          n_shards=n, device="cuda",
+                          log=lambda m, n=n: log_card(f"serve llama3.2-3b {n} shard(s): {m}"))
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in counters.items()}
+        flushes = out["index_sync"]["delta_updates"]
+        require(counts["flat_topk"] > 0 and counts["scatter_flush"] == flushes > 0,
+                f"serve {n} shard(s): flat_topk {counts['flat_topk']} launches at "
+                f"warm-ups, {counts['scatter_flush']} scatter launches for {flushes} "
+                f"delta flushes")
+        outs[n] = out
+        log_card(f"serve llama3.2-3b {n} shard(s): {out['served']} served in "
+            f"{time.perf_counter() - t0:.2f} s, launches at wrapper calls "
+            f"{({k: v for k, v in counts.items() if v})}")
+    keep = ("lookups", "hits", "misses", "inserts", "hit_rate")
+    same = [{k: out[k] for k in ("served", "hit_rate", "model_tokens")} |
+            {c: {k: v for k, v in row.items() if k in keep}
+             for c, row in out["per_category"].items()} for out in outs.values()]
+    require(same[0] == same[1], f"serve: {N_SHARDS} shards {same[1]} against one cache "
+            f"{same[0]}")
+    log_card(f"serve llama3.2-3b: {N_SHARDS} flat shards and one flat cache give the same "
+        f"counters over {n_requests} requests: {same[0]['served']} served, hit rate "
+        f"{same[0]['hit_rate']:.3f}, {same[0]['model_tokens']} model tokens")
+    return outs
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1580,12 +2116,9 @@ class GenerateTimer:
             if kind is None or not programs.ready(key):
                 return orig(programs, key, fn, inputs)    # a search, or a capture
             if key not in self.traced:
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
+                with device_trace(torch, lambda: device_burst(torch)) as events:
                     out = orig(programs, key, fn, inputs)
-                    torch.cuda.synchronize()
-                self.traced[key] = (traced_launches(prof),
+                self.traced[key] = (traced_launches(events),
                                     recorded_launches(programs, {key: 1}))
                 return out
             if len(self.events[kind]) == 3 and kind not in self.profiles:
@@ -1877,7 +2410,7 @@ SERVE_KERNELS = {"flash_attention": "llama3.2-3b", "decode_attention": "llama3.2
 KERNEL_WRAPPERS = {"scatter_rows": ("scatter_flush", "scatter_rows")}
 
 
-PHASES = ("build", "kernels", "index", "main", "parity", "serve")
+PHASES = ("build", "kernels", "index", "main", "parity", "shard", "sim", "serve")
 
 
 def main(argv: list[str]) -> int:
@@ -1935,6 +2468,16 @@ def main(argv: list[str]) -> int:
             t0 = time.perf_counter()
             check_card_vs_cpu(steps=50)
             log(f"phase parity: {time.perf_counter() - t0:.1f} s")
+        if "shard" in phases:
+            t0 = time.perf_counter()
+            sharded = run_shard_path(torch, counters, steps=400)
+            log_card(f"phase shard: {time.perf_counter() - t0:.1f} s; launches of the 4-shard "
+                f"card runs {sharded}")
+        if "sim" in phases:
+            t0 = time.perf_counter()
+            simulated = run_sim(torch, counters)
+            log_card(f"phase sim: {time.perf_counter() - t0:.1f} s; launches of the hybrid "
+                f"card runs {simulated}")
         if "serve" in phases:
             t0 = time.perf_counter()
             served = {}
@@ -1947,6 +2490,7 @@ def main(argv: list[str]) -> int:
                         for a in SERVE_ARCHS for k in same),
                     f"serve: counters differ between {SERVE_ARCHS}: "
                     f"{ {a: [served[a][k] for k in same] for a in SERVE_ARCHS} }")
+            run_sharded_serve(torch, counters, n_requests=64)
             for arch in SERVE_ARCHS:
                 check_model(torch, arch)
             log(f"phase serve: {time.perf_counter() - t0:.1f} s")
@@ -1971,16 +2515,15 @@ def main(argv: list[str]) -> int:
                "launches": sum(launches[w] for w in KERNEL_WRAPPERS.get(name, (name,))),
                "replay_launches": replayed.get(name, 0)}
         row.update({f: numbers[key][f] for f in fields if f in numbers[key]})
+        if name in sharded:       # the cache kernels on the sharded and simulator paths
+            row["shard"], row["sim"] = sharded[name], simulated[name]
         variants = {"_".join(k[1:]): {f: v[f] for f in fields if f in v}
                     for k, v in numbers.items() if k[0] == name and k != key}
         if variants:
             row["variants"] = variants
         rows.append(row)
     print(json.dumps({"kernels": rows}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_name())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

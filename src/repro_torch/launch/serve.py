@@ -1,9 +1,11 @@
 """Serving driver: category-aware semantic cache in front of a real model.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
-        --index hnsw --use-device                       # on the card
+        --index hnsw                                    # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
         --reduced --requests 48 --device cpu            # on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
+        --reduced --requests 48 --shards 4 --replicas 0.25 --device cpu
 
 The counterpart of ``repro.launch.serve``: feature-hash embeddings →
 category policies → hybrid cache (Algorithm 1) → batched prefill/decode on
@@ -16,8 +18,11 @@ random, drawn on the device from ``seed`` with a ``torch.Generator``;
 they differ from the reference's ``jax.random`` draws, but hits and
 misses depend only on the request text, so the served, hit, model-token
 and per-category counters match the reference's for the same seed.
-``--shards > 1`` raises until the sharded tier (``core/shard.py``) is
-ported.
+The cache searches its index on the device (the card, or CPU tensors
+under ``--device cpu``) unless ``--host-search`` asks for the host numpy
+search. ``--shards N`` puts a ``ShardedSemanticCache`` of N shards in
+front of the model, each shard's index on the same device, and
+``--replicas`` replicates head categories across them.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from repro_torch.core.cache import SemanticCache
 from repro_torch.core.clock import WallClock
 from repro_torch.core.policy import AdaptiveController, PolicyEngine, \
     paper_policies
+from repro_torch.core.shard import ShardedSemanticCache
 from repro_torch.core.workload import TABLE1_WORKLOAD, WorkloadGenerator
 from repro_torch.models.model import Model
 from repro_torch.obs import (TraceRecorder, coverage_fraction, prometheus_text,
@@ -40,21 +46,40 @@ from repro_torch.obs import (TraceRecorder, coverage_fraction, prometheus_text,
 from repro_torch.serving.engine import ServingEngine
 
 
+def parse_replicas(spec: str | None) -> dict[str, int] | float | None:
+    """``--replicas`` grammar: a float quota-mass threshold (``0.25`` —
+    categories at or above it get 2 replicas) or an explicit map
+    (``conversational_chat=2,code_generation=3``)."""
+    if not spec:
+        return None
+    try:
+        return float(spec)
+    except ValueError:
+        pass
+    out: dict[str, int] = {}
+    for part in spec.split(","):
+        name, _, k = part.partition("=")
+        if not name or not k.isdigit():
+            raise SystemExit(
+                f"--replicas: expected FLOAT or cat=k[,cat=k...], got "
+                f"{spec!r}")
+        out[name.strip()] = int(k)
+    return out
+
+
 def run_serving(cfg, *, n_requests: int, cache_kind: str = "hybrid",
                 max_batch: int = 8, prompt_len: int = 32,
                 max_new_tokens: int = 8, seed: int = 0,
-                index_kind: str = "flat", use_device: bool = False,
+                index_kind: str = "flat", use_device: bool = True,
                 emb_dtype: str = "float32", n_shards: int = 1,
+                replicas: dict[str, int] | float | None = None,
                 telemetry: bool = False,
                 telemetry_jsonl: str | None = None,
                 telemetry_prom: str | None = None,
                 device: str | torch.device | None = None,
                 log=print) -> dict:
     """Serve ``n_requests`` of Table-1 traffic; ``device`` None means the
-    card (cache index and model)."""
-    if n_shards > 1:
-        raise NotImplementedError("--shards > 1 needs the sharded cache tier "
-                                  "(core/shard.py), which is not ported yet")
+    card (cache index and model), ``use_device=False`` the host search."""
     model = Model(cfg, device=device)
     params = model.init_params(seed)
     controller = AdaptiveController()
@@ -67,10 +92,13 @@ def run_serving(cfg, *, n_requests: int, cache_kind: str = "hybrid",
     trace = telemetry or telemetry_jsonl is not None \
         or telemetry_prom is not None
     obs = TraceRecorder(clock) if trace else None
-    cache = SemanticCache(policies, capacity=max(4096, n_requests), clock=clock,
-                          index_kind=index_kind, use_device=use_device,
-                          l1_capacity=256, emb_dtype=emb_dtype, obs=obs,
-                          device=model.device)
+    kw = dict(capacity=max(4096, n_requests), clock=clock,
+              index_kind=index_kind, use_device=use_device,
+              l1_capacity=256, emb_dtype=emb_dtype, obs=obs,
+              device=model.device)
+    cache = (ShardedSemanticCache(policies, n_shards=n_shards,
+                                  replication=replicas, **kw)
+             if n_shards > 1 else SemanticCache(policies, **kw))
     if cache_kind == "none":
         for name in policies.categories():
             policies.update(name, allow_caching=False)
@@ -96,8 +124,12 @@ def run_serving(cfg, *, n_requests: int, cache_kind: str = "hybrid",
         f"model_tokens={st.model_tokens}, "
         f"mean_latency={st.total_latency_ms / max(1, st.served):.1f}ms, "
         f"wall={wall:.1f}s")
+    # Data-plane counters aggregate across every index the cache owns
+    # (the engine sums cache.last_lookup_stats per step, which the
+    # sharded cache pre-merges over its fan-out).
     log(f"[serve] search data plane: {st.search_hops} hops, "
-        f"{st.rows_gathered} embedding rows gathered")
+        f"{st.rows_gathered} embedding rows gathered "
+        f"across {n_shards} shard(s)")
     sync = getattr(cache, "sync_stats", None)
     if sync is not None:
         log(f"[serve] index sync ({emb_dtype} residency): "
@@ -105,6 +137,23 @@ def run_serving(cfg, *, n_requests: int, cache_kind: str = "hybrid",
             f"{sync['delta_updates']} delta uploads, "
             f"{sync['bytes_synced'] / 1e6:.2f} MB synced "
             f"({sync['emb_bytes_synced'] / 1e6:.2f} MB embeddings)")
+        for si, ss in enumerate(sync.get("per_shard", [])):
+            log(f"[serve]   shard {si}: {ss['full_uploads']} full / "
+                f"{ss['delta_updates']} delta, "
+                f"{ss['bytes_synced'] / 1e6:.2f} MB synced")
+    replica_sets = None
+    if n_shards > 1:
+        replica_sets = {c: list(r) for c, r in sorted(
+            getattr(cache.planner, "replica_sets", {}).items())}
+        if replica_sets:
+            for c, reps in replica_sets.items():
+                log(f"[serve] replica set {c}: shards {reps} "
+                    f"(writes fan out, reads round-robin)")
+            fs = cache.fault_stats
+            log(f"[serve] replication: "
+                f"{fs['failover_reads']} failover reads, "
+                f"{fs['replica_divergence']} divergence events, "
+                f"{fs['outage_rebalances']} outage rebalances")
     snap = cache.metrics.snapshot()
     ov = snap["_overall"]
     log(f"[serve] overall: hit_rate={ov['hit_rate']:.3f}, "
@@ -134,6 +183,7 @@ def run_serving(cfg, *, n_requests: int, cache_kind: str = "hybrid",
             "rows_gathered": st.rows_gathered,
             "n_shards": n_shards,
             "per_category": snap,
+            "replica_sets": replica_sets,
             "telemetry": tele,
             "index_sync": dict(sync) if sync is not None else None}
 
@@ -147,11 +197,12 @@ def main():
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--index", choices=["flat", "hnsw"], default="flat",
                     help="cache index; hnsw enables the graph index")
-    ap.add_argument("--use-device", action="store_true",
-                    help="route lookups through the device-resident "
-                         "(delta-synced) index: the beam search with the "
-                         "frontier_hop kernel for hnsw, the flat_topk "
-                         "kernel for flat")
+    ap.add_argument("--host-search", action="store_true",
+                    help="search the index in host numpy instead of on the "
+                         "device; by default lookups go through the "
+                         "device-resident (delta-synced) index: the beam "
+                         "search with the frontier_hop kernel for hnsw, the "
+                         "flat_topk kernel for flat")
     ap.add_argument("--emb-dtype", choices=["float32", "int8"],
                     default="float32",
                     help="resident embedding tier: int8 = quantized "
@@ -159,8 +210,16 @@ def main():
                          "sync/gather bytes, fp32 re-rank at the τ "
                          "boundary)")
     ap.add_argument("--shards", type=int, default=1,
-                    help="category-sharded cache tier; only 1 until "
-                         "core/shard.py is ported")
+                    help="category-sharded cache tier: N device-resident "
+                         "shards with quota-byte planner placement "
+                         "(core/shard.py); the report shows per-shard "
+                         "sync accounting")
+    ap.add_argument("--replicas", default=None,
+                    help="head-category replication (needs --shards > 1): "
+                         "a float quota-mass threshold (0.25 = categories "
+                         "at/above it get 2 replicas) or an explicit "
+                         "cat=k[,cat=k...] map; the report adds replica-"
+                         "set, failover and divergence lines")
     ap.add_argument("--device", default=None,
                     help="where the model and the cache index run: the "
                          "card by default, 'cpu' for the plain versions")
@@ -182,8 +241,9 @@ def main():
         cfg = cfg.reduced()
     run_serving(cfg, n_requests=args.requests, cache_kind=args.cache,
                 max_batch=args.max_batch, index_kind=args.index,
-                use_device=args.use_device, emb_dtype=args.emb_dtype,
-                n_shards=args.shards, device=args.device,
+                use_device=not args.host_search, emb_dtype=args.emb_dtype,
+                n_shards=args.shards, replicas=parse_replicas(args.replicas),
+                device=args.device,
                 telemetry=args.telemetry,
                 telemetry_jsonl=args.telemetry_jsonl,
                 telemetry_prom=args.telemetry_prom)

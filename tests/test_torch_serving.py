@@ -39,6 +39,18 @@ from repro_torch.models.convert import params_from_reference  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread while this module runs: its many tiny CPU
+    ops under pytest-xdist (a worker per core) with torch's default pool
+    in every worker oversubscribe the machine many times over."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _small(**kw):
     return dict(n_layers=2, d_model=64, vocab_size=256, **kw)
 
@@ -172,6 +184,44 @@ def test_run_serving_counters_match_reference(arch):
 
 
 def test_run_serving_refuses_shards():
-    with pytest.raises(NotImplementedError):
-        run_serving(get_config("llama3_2_3b").reduced(), n_requests=8, n_shards=2,
-                    device="cpu", log=lambda *_: None)
+    """The refusal of ``n_shards > 1`` is lifted: a sharded, replicated run
+    gives the reference's counters, replica sets and per-shard sync."""
+    kw = dict(n_requests=48, max_batch=8, prompt_len=16, max_new_tokens=4, seed=2,
+              n_shards=4, replicas=0.25, use_device=True, log=lambda *_: None)
+    want = jrun_serving(jget_config("llama3_2_3b").reduced(), **kw)
+    got = run_serving(get_config("llama3_2_3b").reduced(), device="cpu", **kw)
+    assert _counters(got) == _counters(want)
+    assert got["replica_sets"] == want["replica_sets"] and got["replica_sets"]
+    assert got["index_sync"] == want["index_sync"]
+    assert len(got["index_sync"]["per_shard"]) == 4
+
+
+def _report(out: str) -> list[str]:
+    """The driver's report lines without its wall-clock numbers."""
+    lines = [ln for ln in out.splitlines() if ln.startswith("[serve]")]
+    return [ln.split(", mean_latency=")[0] for ln in lines]
+
+
+@pytest.mark.parametrize("shards", ["1", "4"])
+def test_cli_counters_match_reference(shards, monkeypatch, capsys):
+    """``python -m repro_torch.launch.serve --arch llama3.2-3b --reduced
+    --requests 48 [--shards 4] --device cpu`` searches on the device (CPU
+    tensors) by default and prints the counters of the reference's CLI
+    run with ``--use-device``."""
+    import repro.launch.serve as jserve
+
+    import repro_torch.launch.serve as tserve
+    args = ["serve", "--arch", "llama3.2-3b", "--reduced", "--requests", "48",
+            "--shards", shards]
+    monkeypatch.setattr("sys.argv", args + ["--use-device"])
+    jserve.main()
+    want = _report(capsys.readouterr().out)
+    monkeypatch.setattr("sys.argv", args + ["--device", "cpu"])
+    captured = []
+    orig = tserve.run_serving
+    monkeypatch.setattr(tserve, "run_serving",
+                        lambda *a, **kw: captured.append(kw) or orig(*a, **kw))
+    tserve.main()
+    got = _report(capsys.readouterr().out)
+    assert captured[0]["use_device"] and got == want
+    assert len(got) == 4 + (int(shards) if shards != "1" else 0)
