@@ -30,7 +30,8 @@ Phases (any failure exits non-zero and prints no result):
              384 and at 128, 256, 512, 1,024 and 12,288 on 4,096 rows), the
              attention kernels in fp32 and bf16 at the serve shape and at a
              long one (prefill 4,096; decode 32,768, and decode 32,768 with
-             gemma2's window of 4,096), mamba_scan with fp32 and bf16 x at
+             gemma2's window of 4,096; both also at granite-moe's serve
+             shape, bf16, dh 64 over 24 / 8 heads), mamba_scan with fp32 and bf16 x at
              N 16 and 8: falcon-mamba-7b's serve prefill (8 × 64 × 8192),
              its decode step (L 1, the state read from h0 and written back
              over it in place, held bit for bit against a separate h_out)
@@ -63,7 +64,13 @@ Phases (any failure exits non-zero and prints no result):
              the replayed graphs recorded;
 5. parity  — the same traffic at capacity 16,384, card against CPU: equal
              decisions, except queries within 1e-5 of their τ;
-6. serve   — ``launch.serve.run_serving``: 256 Table-1 requests through
+6. serve   — first the MoE FFN on the card: the routed path
+             (``torch._grouped_mm``) against the dense exact one (every
+             expert in fp32) on seeded bf16 inputs at granite-moe's layer
+             (T 512, a prefill; T 8, a decode step) and jamba's (T 128),
+             each timed beside the dense path and its bound, and route's
+             ties (duplicated router columns) going to the lower expert.
+             Then ``launch.serve.run_serving``: 256 Table-1 requests through
              the cache (hnsw, fp32, device search) in front of
              llama3.2-3b at full width and depth (seeded random bf16
              weights), batch 8, prompt 64, 16 new tokens. Generation
@@ -76,13 +83,27 @@ Phases (any failure exits non-zero and prints no result):
              prefill and a decode graph. Then the same run in
              front of falcon-mamba-7b at full width and depth (64 Mamba
              layers, d_inner 8192): mamba_scan 64 times per prefill and
-             decode step, and the served, hit and model-token counters
-             must equal llama's (hits depend only on the text). For each
+             decode step), and in front of granite-moe-3b-a800m at full
+             width and depth (32 layers, each attention at dh 64 and an
+             MoE FFN of 40 experts, top 8: flash_attention and
+             decode_attention 32 times per prefill and decode step; its
+             decode step bound counts the experts a batch reaches); the
+             served, hit and model-token counters must equal llama's (hits
+             depend only on the text). For each
              model the graphs' tokens for a batch of 8 and one of 3 must
              equal the eager prefill/decode_step loop's. Then 64 requests
              in front of llama3.2-3b behind a flat cache of 4 shards and
              of one: the same counters. Then each model at full width and
-             2 layers: decode against prefill, and card against CPU;
+             2 layers: decode against prefill, and card against CPU (an
+             MoE model's second computation takes the first's expert
+             choices, and every choice it would have made otherwise must
+             be a near tie: ``Routing``). Last, jamba at full width and one
+             period of 8 layers (Mamba x 4, attention, Mamba x 3, MoE of 16
+             experts top 2 on the odd layers), on the card only: decode
+             against prefill, 4 greedy decode steps with finite logits,
+             mamba_scan 7 times per prefill and decode step,
+             flash_attention once per prefill, decode_attention once per
+             decode step, and its peak memory;
 7. shard   — ``ShardedSemanticCache`` of 4 shards at capacity 1,048,576
              (each shard's table too), main's traffic and combinations:
              the first 200 steps, a live ``migrate_category`` of
@@ -115,8 +136,9 @@ made at wrapper calls in the run of the kernel's path; ``replay_launches``:
 those its graphs' replays made, each graph's recorded launches times its
 replays; for the cache kernels also ``shard`` and ``sim``, the same counts
 in the 4-shard card runs of phase 7, with ``per_shard`` replays (delta
-flushes for scatter_rows), and in the hybrid card runs of phase 8), the
-card's name and power limit from nvidia-smi, and
+flushes for scatter_rows), and in the hybrid card runs of phase 8; for
+the model kernels ``serve``, the same two counts in each served model's
+run that launched it), the card's name and power limit from nvidia-smi, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -126,6 +148,7 @@ import contextlib
 import functools
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -863,18 +886,28 @@ def check_attention(torch, dev) -> dict:
     gen.manual_seed(2027)
     out = {}
 
-    def rnd(*shape, dtype):
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    # granite-moe's serve shapes (bf16, dh 64) draw from their own
+    # generator, so every other shape's inputs stay as they were drawn
+    gen64 = torch.Generator(device=dev)
+    gen64.manual_seed(2031)
 
-    # -- flash_attention, causal: serve shape and a long prefill ----------
-    for label, B, S in (("serve", 8, 64), ("long", 1, 4096)):
-        for dtype in (torch.float32, torch.bfloat16):
-            sets = [(rnd(B, HQ, S, DH, dtype=dtype), rnd(B, HKV, S, DH, dtype=dtype),
-                     rnd(B, HKV, S, DH, dtype=dtype)) for _ in range(2 if S < 1024 else 1)]
+    def rnd(*shape, dtype, g=gen):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    # -- flash_attention, causal: serve shape, a long prefill, granite's ---
+    for label, B, S, dh, dtypes in (
+            ("serve", 8, 64, DH, (torch.float32, torch.bfloat16)),
+            ("long", 1, 4096, DH, (torch.float32, torch.bfloat16)),
+            ("serve_dh64", 8, 64, 64, (torch.bfloat16,))):
+        g = gen64 if dh == 64 else gen
+        for dtype in dtypes:
+            sets = [(rnd(B, HQ, S, dh, dtype=dtype, g=g), rnd(B, HKV, S, dh, dtype=dtype, g=g),
+                     rnd(B, HKV, S, dh, dtype=dtype, g=g))
+                    for _ in range(2 if S < 1024 else 1)]
             err = max(flash_close(torch, fa, q, k, v, causal=True) for q, k, v in sets)
             esz = sets[0][0].element_size()
-            nbytes = esz * (2 * B * HQ * S * DH + 2 * B * HKV * S * DH)
-            flops = 4 * B * HQ * DH * S * (S + 1) // 2      # causal pairs
+            nbytes = esz * (2 * B * HQ * S * dh + 2 * B * HKV * S * dh)
+            flops = 4 * B * HQ * dh * S * (S + 1) // 2      # causal pairs
             rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
             b_fa = bound(nbytes, flops, rate)
             q, k, v = sets[0]
@@ -887,7 +920,7 @@ def check_attention(torch, dev) -> dict:
                 bound_ms=b_fa[0], bound_by=b_fa[1],
                 library_ms=sdpa_ms(torch, q, k, v, causal=True), bytes=nbytes,
                 flops=flops)
-            log(f"kernels: flash_attention {label} B={B} S={S} {dtype} "
+            log(f"kernels: flash_attention {label} B={B} S={S} dh={dh} {dtype} "
                 f"{out[('flash_attention', label, str(dtype)[6:])]}")
     # window, softcap, kv_offset and an Skv edge off the tile grid: held,
     # not timed
@@ -912,19 +945,24 @@ def check_attention(torch, dev) -> dict:
             f"(max |err| {err:.3g})")
 
     # -- decode_attention through the model's (B, S, Hkv, dh) cache view ---
-    for label, B, S in (("serve", 8, 80), ("decode_32k", 8, 32768)):
-        for dtype in (torch.float32, torch.bfloat16):
+    # llama's serve shape (dh 128), a long one, and granite-moe's (dh 64)
+    for label, B, S, dh, dtypes in (
+            ("serve", 8, 80, DH, (torch.float32, torch.bfloat16)),
+            ("decode_32k", 8, 32768, DH, (torch.float32, torch.bfloat16)),
+            ("serve_dh64", 8, 80, 64, (torch.bfloat16,))):
+        g = gen64 if dh == 64 else gen
+        for dtype in dtypes:
             sets = []
             for i in range(2 if S < 1024 else 1):
-                kc = rnd(B, S, HKV, DH, dtype=dtype)
-                vc = rnd(B, S, HKV, DH, dtype=dtype)
+                kc = rnd(B, S, HKV, dh, dtype=dtype, g=g)
+                vc = rnd(B, S, HKV, dh, dtype=dtype, g=g)
                 lo = 65 if S < 1024 else 1
-                lens = torch.randint(lo, S + 1, (B,), generator=gen, device=dev,
+                lens = torch.randint(lo, S + 1, (B,), generator=g, device=dev,
                                      dtype=torch.int32)
                 lens[0] = S
                 if i == 1:
                     lens[1] = 0                               # attends to nothing
-                sets.append((rnd(B, HQ, DH, dtype=dtype), kc.transpose(1, 2),
+                sets.append((rnd(B, HQ, dh, dtype=dtype, g=g), kc.transpose(1, 2),
                              vc.transpose(1, 2), lens))
             err = 0.0
             for q, k, v, lens in sets:
@@ -941,8 +979,8 @@ def check_attention(torch, dev) -> dict:
                                da.decode_attention_plain(q, k, v, kv_len=lens, **kw))
             esz = sets[0][0].element_size()
             live = statistics.mean(int(s[3].sum()) for s in sets)
-            nbytes = esz * (2 * live * HKV * DH + 2 * B * HQ * DH) + 4 * B
-            flops = 4 * HQ * DH * live
+            nbytes = esz * (2 * live * HKV * dh + 2 * B * HQ * dh) + 4 * B
+            flops = 4 * HQ * dh * live
             b_da = bound(nbytes, flops, BF16_OPS_PER_S if dtype == torch.bfloat16
                          else FP32_OPS_PER_S)
             q, k, v, lens = sets[0]
@@ -955,7 +993,7 @@ def check_attention(torch, dev) -> dict:
                 bound_ms=b_da[0], bound_by=b_da[1],
                 library_ms=sdpa_ms(torch, q[:, :, None], k, v, causal=False, mask=mask),
                 bytes=nbytes, flops=flops)
-            log(f"kernels: decode_attention {label} B={B} S={S} {dtype} "
+            log(f"kernels: decode_attention {label} B={B} S={S} dh={dh} {dtype} "
                 f"{out[('decode_attention', label, str(dtype)[6:])]}")
             if label == "decode_32k":
                 row = out[("decode_attention", label, str(dtype)[6:])]
@@ -1312,40 +1350,50 @@ def indexes(cache) -> list:
     return [s.index for s in getattr(cache, "shards", [cache])]
 
 
-MARK_CYCLES = 40_000_000       # the trace's marker kernel spins ~20 ms
+MARK_CYCLES = 40_000_000       # the trace's marker kernels spin ~20 ms each
+EDGE_S = 0.05                  # idle host time at each end of a trace's session
 
 
 @contextlib.contextmanager
 def device_trace(torch, lead_in):
     """The card's events of the ``with`` block under torch.profiler: a
-    list of (name, duration ns), filled when the block ends. The session
-    runs ``lead_in()`` and a marker kernel (``torch.cuda._sleep``) first,
-    and only the events after the marker are kept: the first device
-    events of a session can go missing from its trace (on the card, in a
-    process that has run for minutes: a lookup's input copy and first
-    kernels, a graph replay's first hops), so the block's own work must
-    not be the first the session sees."""
+    list of (name, duration ns), filled when the block ends. The block is
+    fenced by two marker kernels (``torch.cuda._sleep``), and only the
+    events between them are kept; both markers must be in the trace.
+    Device events near either end of a profiler session can go missing
+    from its trace (on the card, in a process that has run for minutes: a
+    lookup's first kernels, and once two graph replays of a block of
+    sharded lookups that ended its session), so the session runs
+    ``EDGE_S`` of host idle time and ``lead_in()`` before the first
+    marker, and a burst of small kernels and ``EDGE_S`` after the second:
+    the block's own work is neither the first nor the last the session sees."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     events = []
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(EDGE_S)
         lead_in()
         torch.cuda._sleep(MARK_CYCLES)
         torch.cuda.synchronize()
         yield events
         torch.cuda.synchronize()
+        torch.cuda._sleep(MARK_CYCLES)
+        device_burst(torch)
+        torch.cuda.synchronize()
+        time.sleep(EDGE_S)
     found = sorted((e.start_ns(), e.name(), e.duration_ns())
                    for e in prof.profiler.kineto_results.events()
                    if e.device_type() == DeviceType.CUDA)
     marks = [k for k, e in enumerate(found) if "spin_kernel" in e[1]]
-    require(marks, "device trace: the marker kernel is not in the trace")
-    events.extend((name, dur) for _, name, dur in found[marks[-1] + 1:])
+    require(len(marks) == 2, f"device trace: {len(marks)} marker kernels of 2 in the "
+            f"trace's {len(found)} device events")
+    events.extend((name, dur) for _, name, dur in found[marks[0] + 1:marks[1]])
 
 
 def device_burst(torch) -> None:
-    """1,000 tiny kernels on the current stream: a trace's lead-in where
-    the traced work cannot run twice."""
+    """1,000 tiny kernels on the current stream: a trace's lead-out, and
+    its lead-in where the traced work cannot run twice."""
     x = torch.zeros(1, device="cuda")
     for _ in range(1_000):
         x.add_(1.0)
@@ -2034,7 +2082,13 @@ def run_sharded_serve(torch, counters, n_requests: int) -> dict:
 
 
 # ---------------------------------------------------------------- phase 6
-SERVE_ARCHS = ("llama3.2-3b", "falcon-mamba-7b")
+SERVE_ARCHS = ("llama3.2-3b", "falcon-mamba-7b", "granite-moe-3b-a800m")
+# The model kernels each family's generation runs, once per layer of every
+# prefill and / or decode step (moe: granite-moe, every layer attention).
+SERVE_PATH = {"dense": {"flash_attention": ("prefill",), "decode_attention": ("decode",)},
+              "moe": {"flash_attention": ("prefill",), "decode_attention": ("decode",)},
+              "ssm": {"mamba_scan": ("prefill", "decode")}}
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 # bf16 logits (magnitude ~4): card and CPU, or decode and prefill, round
 # activations at other places (cuBLAS and the CPU sum in other orders, the
 # decode and flash kernels differ in summation order), and one bf16 step of
@@ -2167,9 +2221,10 @@ def run_serve(torch, counters, arch: str, n_requests: int) -> dict:
     tokens. Generation replays a prefill and a decode graph per miss-batch
     size. Every kernel of the model's path must have launched exactly once
     per layer of every prefill (flash_attention) or decode step
-    (decode_attention) that ran on the card, a dense model's, or of both
-    (mamba_scan), an ssm model's; afterwards the captured generation must
-    give the eager loop's tokens for a batch of 8 and one of 3."""
+    (decode_attention) that ran on the card, a dense or MoE model's, or of
+    both (mamba_scan), an ssm model's (``SERVE_PATH``); afterwards the
+    captured generation must give the eager loop's tokens for a batch of 8
+    and one of 3."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -2203,8 +2258,7 @@ def run_serve(torch, counters, arch: str, n_requests: int) -> dict:
     replayed = recorded_launches(programs, programs.replays)
     caps = {k: graph_count(programs.captures, k) for k in GenerateTimer.KINDS}
     reps = {k: graph_count(programs.replays, k) for k in GenerateTimer.KINDS}
-    path = ({"flash_attention": ("prefill",), "decode_attention": ("decode",)}
-            if cfg.family == "dense" else {"mamba_scan": GenerateTimer.KINDS})
+    path = SERVE_PATH[cfg.family]
     for k, kinds in path.items():
         warm, runs = sum(caps[g] for g in kinds), sum(reps[g] for g in kinds)
         require(counts[k] == cfg.n_layers * warm > 0
@@ -2262,8 +2316,9 @@ def run_serve(torch, counters, arch: str, n_requests: int) -> dict:
         f"{len(timer.traced)} graphs ran exactly its recorded launches)")
     log(f"serve {arch}: decode step bound {step['decode_bound_ms']:.4f} ms, "
         f"{step['decode_bound_by']} ({step['decode_bytes'] / 1e9:.4f} GB at the mean "
-        f"batch: bf16 layers, bf16 head, {step['decode_state']}); the fp32 head copy "
-        f"the port reads instead adds {step['fp32_head_extra_ms']:.4f} ms")
+        f"batch: bf16 layers{step['decode_experts']}, bf16 head, "
+        f"{step['decode_state']}); the fp32 head copy the port reads instead adds "
+        f"{step['fp32_head_extra_ms']:.4f} ms")
     for name, text in timer.profiles.items():
         log(f"serve {arch}: profile of one {name} replay: {text}")
     rng = np.random.default_rng(11)
@@ -2296,11 +2351,25 @@ def decode_step_bound(params, cfg, batch: float, *, prompt_len: int,
     rows of an attention layer, at the mean live length over the steps of
     a generate, read; the fp32 state and conv tail of a Mamba layer, read
     and written) at the HBM rate, or its products at the bf16 tensor-core
-    rate, whichever is larger. The port's fp32 head copy is a cost of its
-    design, reported apart."""
+    rate, whichever is larger. An MoE layer reads only the experts its
+    batch routes to: under uniform routing E·(1 − (1 − k/E)^batch) of E
+    (33.3 of granite-moe's 40 at batch 8), and does k experts' products a
+    token, not E. The port's fp32 head copy is a cost of its design,
+    reported apart."""
     head = params["head"]
     esz = head.element_size()
     read = [params["layers"], params["final_norm"], head]
+    experts = [layer["mlp"][n] for layer in params["layers"]
+               if "router" in layer.get("mlp", {}) for n in EXPERT_LEAVES]
+    routed = {id(t) for t in experts}
+
+    def dense(of):
+        return tree_sum(read, lambda t: 0 if id(t) in routed else of(t))
+
+    hit = expected_experts(cfg.n_experts, cfg.moe_top_k, batch) if experts else 0.0
+    exp_bytes = tree_sum(experts, lambda t: t.nbytes) * (hit / max(cfg.n_experts, 1))
+    exp_flops = (2 * batch * cfg.moe_top_k / max(cfg.n_experts, 1)
+                 * tree_sum(experts, lambda t: t.numel()))
     kinds = cfg.layer_kinds()
     # decode step i of a generate attends prompt_len + 1 + i positions
     live = prompt_len + 1 + (new_tokens - 2) / 2
@@ -2312,12 +2381,16 @@ def decode_step_bound(params, cfg, batch: float, *, prompt_len: int,
         text for n, text in ((kinds.count("attn"), "live KV"),
                              (kinds.count("mamba"), "the Mamba state read and written"))
         if n)
-    nbytes = tree_sum(read, lambda t: t.nbytes) + kv + ssm + batch * cfg.d_model * esz
-    flops = 2 * batch * tree_sum(read, lambda t: t.numel())
+    nbytes = dense(lambda t: t.nbytes) + exp_bytes + kv + ssm + batch * cfg.d_model * esz
+    flops = 2 * batch * dense(lambda t: t.numel()) + exp_flops
     t, by = bound(nbytes, flops, BF16_OPS_PER_S)
     extra = head.numel() * (4 - esz)
+    note = (f", of each MoE layer's {cfg.n_experts} experts the {hit:.1f} that "
+            f"uniform top-{cfg.moe_top_k} routing reaches at the mean batch, not all"
+            if experts else "")
     return dict(decode_bound_ms=t, decode_bound_by=by, decode_bytes=nbytes,
-                decode_state=state, fp32_head_extra_ms=extra / HBM_BYTES_PER_S * 1e3)
+                decode_state=state, decode_experts=note, decode_experts_hit=hit,
+                fp32_head_extra_ms=extra / HBM_BYTES_PER_S * 1e3)
 
 
 def tree_to(tree, device):
@@ -2329,10 +2402,113 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
+class Routing:
+    """``repro_torch.models.moe.route`` wrapped while a model check runs:
+    every call's router input (fp32), its own expert ids and the router
+    are kept per device in call order (layer order, prefill then each
+    decode step). ``force(device, i)`` may give the ids the i-th call on
+    that device returns instead, weighted by its own probabilities at
+    them. Routing is a step function of its input: two computations of
+    the same model that round differently (card and CPU, decode and
+    prefill) flip a choice that sits within that rounding of a tie, and
+    a flipped choice moves its token's FFN output by O(1). So a check of
+    two computations forces the second onto the first's choices, and
+    ``near_ties`` holds each choice it would have made itself to the
+    first's except where the first's k-th and (k+1)-th router logits lie
+    within twice the two router inputs' logit difference."""
+
+    def __init__(self, torch, force=None):
+        self.torch, self.force = torch, force
+        self.calls = {"cpu": [], "cuda": []}
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._orig = moe, moe.route
+        torch = self.torch
+
+        def route(x, w, cfg):
+            ids, weights, aux = self._orig(x, w, cfg)
+            mine = self.calls[x.device.type]
+            mine.append((x.float().cpu(), ids.cpu(), w.float().cpu()))
+            forced = self.force(x.device.type, len(mine) - 1) if self.force else None
+            if forced is not None:
+                ids = forced.to(device=x.device, dtype=ids.dtype)
+                probs = torch.softmax(x.float() @ w.float(), dim=-1)
+                weights = probs.gather(1, ids.long())
+                weights = weights / weights.sum(-1, keepdim=True).clamp(min=1e-9)
+            return ids, weights, aux
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._orig
+
+
+def near_ties(torch, first, second, label: str) -> tuple[int, float]:
+    """``first`` and ``second``: lists of (x, ids, router) of the same
+    calls. Every choice of ``second`` that differs from ``first``'s must
+    be a near tie (``Routing``). Returns (flips, largest |x| difference)."""
+    require(len(first) == len(second) > 0, f"{label}: {len(first)} routing calls "
+            f"against {len(second)}")
+    flips, dx = 0, 0.0
+    for (xa, ia, w), (xb, ib, _) in zip(first, second):
+        dx = max(dx, float((xa - xb).abs().max()))
+        la, lb = xa @ w, xb @ w
+        k = ia.shape[1]
+        top = la.sort(dim=1, descending=True).values
+        margin = top[:, k - 1] - top[:, k]
+        noise = (la - lb).abs().max(dim=1).values
+        for t in range(ia.shape[0]):
+            if set(ia[t].tolist()) != set(ib[t].tolist()):
+                flips += 1
+                require(float(margin[t]) <= 2 * float(noise[t]) + 1e-6,
+                        f"{label}: token {t} routed to {ib[t].tolist()} against "
+                        f"{ia[t].tolist()} with a margin {float(margin[t])} beyond twice "
+                        f"the router-logit difference {float(noise[t])}")
+    return flips, dx
+
+
+def split_calls(calls, B: int, S: int) -> tuple[list, list]:
+    """A prefill's routing calls over B x S tokens, cut into those of its
+    first S-1 positions and those of its last (a decode step's)."""
+    head, last = [], []
+    for x, ids, w in calls:
+        xs, ii = x.view(B, S, -1), ids.view(B, S, -1)
+        head.append((xs[:, :S - 1].reshape(B * (S - 1), -1),
+                     ii[:, :S - 1].reshape(B * (S - 1), -1), w))
+        last.append((xs[:, S - 1], ii[:, S - 1], w))
+    return head, last
+
+
+def decode_vs_prefill(torch, model, params, toks, label: str) -> dict:
+    """Decode of token S-1 after a prefill of S-1 against the prefill of
+    all S, on the card, each MoE layer forced onto the full prefill's
+    choices (``Routing``). Returns the logits' largest difference, the
+    full prefill's (logits, cache, kv_len) and the routing flips."""
+    B, S = toks.shape
+    V = model.cfg.vocab_size
+    with Routing(torch) as full:
+        lf, cf, kf = model.prefill(params, {"tokens": toks}, S + 8)
+    head, last = split_calls(full.calls["cuda"], B, S)
+    n = len(head)
+    forced = [c[1] for c in head] + [c[1] for c in last]
+    with Routing(torch, force=lambda dev, i: forced[i] if i < 2 * n else None) as part:
+        _, cache, kvl = model.prefill(params, {"tokens": toks[:, :S - 1]}, S + 8)
+        ld, _, _ = model.decode_step(params, cache, toks[:, S - 1].cuda(), kvl)
+    flips, dx = near_ties(torch, head + last, part.calls["cuda"], label) if n else (0, 0.0)
+    err = float((lf[:, :V] - ld[:, :V]).abs().max())
+    require(err <= LOGIT_TOL, f"{label}: decode vs prefill err {err}")
+    return dict(err=err, flips=flips, router_dx=dx, full=(lf, cf, kf))
+
+
 def check_model(torch, arch: str) -> dict:
     """``arch`` at full width and 2 layers, one seeded set of weights on
     the card and a copy on the CPU: decode of token S-1 against the prefill
-    of S tokens on the card, and card against CPU logits and greedy tokens."""
+    of S tokens on the card, and card against CPU logits and greedy tokens
+    over a prefill and 4 decode steps. An MoE model's card run takes the
+    reference computation's expert choices (``Routing``): the full
+    prefill's for the decode, the CPU's for the card."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2345,34 +2521,193 @@ def check_model(torch, arch: str) -> dict:
     V, B, S = cfg.vocab_size, 2, 64
     gen = torch.Generator().manual_seed(7)
     toks = torch.randint(2, V, (B, S), generator=gen, dtype=torch.int32)
-    lf, _, _ = card.prefill(params, {"tokens": toks}, S + 8)
-    lp, cache, kvl = card.prefill(params, {"tokens": toks[:, :S - 1]}, S + 8)
-    ld, _, _ = card.decode_step(params, cache, toks[:, S - 1].cuda(), kvl)
-    err_dp = float((lf[:, :V] - ld[:, :V]).abs().max())
-    require(err_dp <= LOGIT_TOL, f"model {arch}: decode vs prefill err {err_dp}")
-    lc, cc, kc = card.prefill(params, {"tokens": toks}, S + 8)
-    lh, ch, kh = cpu.prefill(host, {"tokens": toks}, S + 8)
+    dp = decode_vs_prefill(torch, card, params, toks, f"model {arch}")
     errs, agree, clear_n = [], 0, 0
-    for step in range(5):
-        a, b = lc[:, :V].cpu(), lh[:, :V]
-        require(bool(torch.isfinite(a).all()), f"model {arch}: non-finite logits")
-        errs.append(float((a - b).abs().max()))
-        top2 = b.topk(2, dim=1).values
-        clear = (top2[:, 0] - top2[:, 1]) > 2 * LOGIT_TOL
-        require(torch.equal(a.argmax(1)[clear], b.argmax(1)[clear]),
-                f"model {arch}: greedy tokens differ at step {step}")
-        agree += int((a.argmax(1) == b.argmax(1)).sum())
-        clear_n += int(clear.sum())
-        tok = b.argmax(1).to(torch.int32)
-        lc, cc, kc = card.decode_step(params, cc, tok.cuda(), kc)
-        lh, ch, kh = cpu.decode_step(host, ch, tok, kh)
+    with Routing(torch, force=lambda dev, i: (routes.calls["cpu"][i][1]
+                                              if dev == "cuda" else None)) as routes:
+        lh, ch, kh = cpu.prefill(host, {"tokens": toks}, S + 8)
+        lc, cc, kc = card.prefill(params, {"tokens": toks}, S + 8)
+        for step in range(5):
+            a, b = lc[:, :V].cpu(), lh[:, :V]
+            require(bool(torch.isfinite(a).all()), f"model {arch}: non-finite logits")
+            errs.append(float((a - b).abs().max()))
+            top2 = b.topk(2, dim=1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * LOGIT_TOL
+            require(torch.equal(a.argmax(1)[clear], b.argmax(1)[clear]),
+                    f"model {arch}: greedy tokens differ at step {step}")
+            agree += int((a.argmax(1) == b.argmax(1)).sum())
+            clear_n += int(clear.sum())
+            if step == 4:
+                break
+            tok = b.argmax(1).to(torch.int32)
+            lh, ch, kh = cpu.decode_step(host, ch, tok, kh)
+            lc, cc, kc = card.decode_step(params, cc, tok.cuda(), kc)
+    flips, dx = (near_ties(torch, routes.calls["cpu"], routes.calls["cuda"],
+                           f"model {arch} card vs CPU")
+                 if routes.calls["cpu"] else (0, 0.0))
     require(max(errs) <= LOGIT_TOL, f"model {arch}: card vs CPU logits err {max(errs)}")
-    log(f"model {arch}: 2-layer full width, decode vs prefill max |dlogit| {err_dp:.5f}; card vs "
-        f"CPU max |dlogit| {max(errs):.5f} over prefill + 4 decode steps (tolerance "
-        f"{LOGIT_TOL}); greedy tokens equal {agree}/{5 * B} ({clear_n} beyond the margin)")
-    del card, params, cache, cc
+    routing = (f"; MoE routing forced onto the full prefill's / the CPU's choices "
+               f"(router inputs within {dp['router_dx']:.4f} / {dx:.4f}; own choices "
+               f"that differ, each a near tie: {dp['flips']} / {flips})"
+               if routes.calls["cpu"] else "")
+    log(f"model {arch}: 2-layer full width, decode vs prefill max |dlogit| "
+        f"{dp['err']:.5f}; card vs CPU max |dlogit| {max(errs):.5f} over prefill + 4 "
+        f"decode steps (tolerance {LOGIT_TOL}); greedy tokens equal {agree}/{5 * B} "
+        f"({clear_n} beyond the margin){routing}")
+    del card, params, cc, dp["full"]
     torch.cuda.empty_cache()
-    return dict(decode_vs_prefill=err_dp, card_vs_cpu=max(errs))
+    return dict(decode_vs_prefill=dp["err"], card_vs_cpu=max(errs))
+
+
+HYBRID_ARCH = "jamba-v0.1-52b"
+HYBRID_LAYERS = 8              # one period: Mamba x 4, attention, Mamba x 3
+
+
+def check_hybrid(torch, counters) -> dict:
+    """jamba at full width and one period of 8 layers (attention at 4, MoE
+    FFNs of 16 experts top-2 on the odd layers), seeded bf16 weights on
+    the card (no CPU copy: 27 GB of CPU MoE is too slow): decode of token
+    63 against the prefill of 64 (``decode_vs_prefill``), then 4 greedy
+    decode steps from the full prefill, every logit finite. mamba_scan
+    must launch 7 times per prefill and decode step, flash_attention once
+    per prefill and decode_attention once per decode step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH), n_layers=HYBRID_LAYERS)
+    kinds = cfg.layer_kinds()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    params = model.init_params(0)
+    n_params = tree_sum(params, lambda t: t.numel())
+    V, B, S, steps = cfg.vocab_size, 2, 64, 4
+    gen = torch.Generator().manual_seed(7)
+    toks = torch.randint(2, V, (B, S), generator=gen, dtype=torch.int32)
+    dp = decode_vs_prefill(torch, model, params, toks, f"model {HYBRID_ARCH}")
+    logits, cache, kv_len = dp.pop("full")
+    for _ in range(steps):
+        require(bool(torch.isfinite(logits[:, :V]).all()),
+                f"model {HYBRID_ARCH}: non-finite logits")
+        tok = logits[:, :V].argmax(-1).to(torch.int32)
+        logits, cache, kv_len = model.decode_step(params, cache, tok, kv_len)
+    require(bool(torch.isfinite(logits[:, :V]).all()), f"model {HYBRID_ARCH}: non-finite logits")
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    prefills, decodes = 2, 1 + steps
+    want = {"mamba_scan": kinds.count("mamba") * (prefills + decodes),
+            "flash_attention": kinds.count("attn") * prefills,
+            "decode_attention": kinds.count("attn") * decodes}
+    require(counts == want, f"model {HYBRID_ARCH}: launches {counts}, not {want} "
+            f"({prefills} prefills and {decodes} decode steps)")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log_card(f"model {HYBRID_ARCH}: full width, {HYBRID_LAYERS} layers {kinds} "
+             f"(MoE on {cfg.mlp_kinds().count('moe')}), {n_params / 1e9:.2f} B parameters: "
+             f"decode vs prefill max |dlogit| {dp['err']:.5f} (tolerance {LOGIT_TOL}; "
+             f"routing forced onto the full prefill's, router inputs within "
+             f"{dp['router_dx']:.4f}, own choices that differ, each a near tie: "
+             f"{dp['flips']}); {steps} greedy decode steps finite; launches {counts}; "
+             f"peak device memory {peak:.2f} GiB; {time.perf_counter() - t0:.1f} s")
+    del model, params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(decode_vs_prefill=dp["err"], launches=counts, peak_gib=peak)
+
+
+# ---------------------------------------------------------------- MoE FFN
+MOE_REL = 2.0 ** -6            # routed (bf16 products) against dense exact (fp32):
+                               # of the largest |y|, four bf16 ulps there (the card
+                               # rounds g, u, the hidden and each expert's output)
+MOE_SHAPES = (("granite_prefill", "granite-moe-3b-a800m", 512),
+              ("granite_decode", "granite-moe-3b-a800m", 8),
+              ("jamba_prefill", HYBRID_ARCH, 128))
+TIE_PAIRS = ((1, 38), (3, 4), (0, 39))   # duplicated router columns (granite's 40)
+
+
+def expected_experts(E: int, k: int, batch: float) -> float:
+    """Distinct experts that ``batch`` tokens reach under uniform top-k."""
+    return E * (1 - (1 - k / E) ** batch)
+
+
+def route_ties(torch, moe, cfg, T: int) -> int:
+    """A router with duplicated columns and inputs whose logits are exact
+    (inputs in {-1, 0, 1}, weights in 64ths up to 1/8: every sum exact in
+    any order, and spread little enough that no probability underflows),
+    on the card: the ids equal the stable descending order of the exact
+    logits, so where a tied pair straddles the k-th place the lower
+    expert is taken. Returns how many tokens it decided so."""
+    gen = torch.Generator().manual_seed(41)
+    x = torch.randint(-1, 2, (T, cfg.d_model), generator=gen).to(torch.float32)
+    w = torch.randint(-8, 9, (cfg.d_model, cfg.n_experts), generator=gen) / 64
+    for lo, hi in TIE_PAIRS:
+        w[:, hi] = w[:, lo]
+    ids = moe.route(x.to(torch.bfloat16).cuda(), w.cuda(), cfg)[0].cpu()
+    want = (x.double() @ w.double()).sort(dim=1, descending=True, stable=True).indices
+    require(torch.equal(ids.long(), want[:, :cfg.moe_top_k]),
+            "moe route: ids on the card are not the exact logits' stable top-k")
+    straddle = sum((lo in row) != (hi in row) for row in ids.tolist()
+                   for lo, hi in TIE_PAIRS)
+    require(straddle > 0 and all(lo in row for row in ids.tolist()
+                                 for lo, hi in TIE_PAIRS if (lo in row) != (hi in row)),
+            f"moe route: {straddle} tied pairs cut by the k-th place, the lower "
+            f"expert not always taken")
+    return straddle
+
+
+def check_moe_ffn(torch) -> dict:
+    """The routed MoE FFN (the main path: ``torch._grouped_mm`` on the card)
+    against the dense exact path (every expert in fp32) on the same card,
+    seeded bf16 inputs, at granite-moe's layer (T 512: a prefill of 8 x
+    64; T 8: a decode step at batch 8) and jamba's (T 128: 2 x 64), each
+    timed (CUDA events around graph replays) beside the dense path and
+    the bound (the experts this run's tokens reach, their weight bytes at
+    the HBM rate, or the routed products at the bf16 rate), and route's
+    ties at granite's width."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.layers import init_moe
+    out = {}
+    for label, arch, T in MOE_SHAPES:
+        cfg = get_config(arch)
+        d, ffe, E, k = cfg.d_model, cfg.d_ff_expert, cfg.n_experts, cfg.moe_top_k
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(31)
+        p = init_moe(gen, cfg, "cuda")
+        xs = [torch.randn((T, d), generator=gen, device="cuda").to(torch.bfloat16)
+              for _ in range(2)]
+        err, tol, used = 0.0, math.inf, []
+        for x in xs:
+            got, _ = moe.moe_ffn_routed(x, p, cfg)
+            want, _ = moe.moe_ffn_dense_exact(x, p, cfg)
+            require(got.dtype == torch.bfloat16 and got.shape == (T, d)
+                    and bool(torch.isfinite(got).all()), f"moe {label}: bad output")
+            e = float((got.float() - want.float()).abs().max())
+            t = MOE_REL * float(want.float().abs().max())
+            require(e <= t, f"moe {label}: routed vs dense exact err {e} > {t}")
+            err, tol = max(err, e), min(tol, t)
+            used.append(moe.route(x, p["router"], cfg)[0].unique().numel())
+        w_bytes = 3 * d * ffe * p["w_gate"].element_size()
+        nbytes = (statistics.mean(used) * w_bytes + p["router"].nbytes
+                  + 2 * T * d * xs[0].element_size())
+        flops = 2 * T * k * 3 * d * ffe + 2 * T * d * E
+        b = bound(nbytes, flops, BF16_OPS_PER_S)
+        out[label] = dict(
+            arch=arch, T=T, max_abs_err=err, tol=tol, experts_used=used,
+            ms=graph_ms(torch, [lambda x=x: moe.moe_ffn_routed(x, p, cfg) for x in xs]),
+            dense_ms=graph_ms(torch, [lambda x=x: moe.moe_ffn_dense_exact(x, p, cfg)
+                                      for x in xs]),
+            bound_ms=b[0], bound_by=b[1], bytes=nbytes, flops=flops)
+        if label == "granite_prefill":
+            out[label]["tie_straddles"] = route_ties(torch, moe, cfg, T)
+        log_card(f"moe_ffn {label}: {arch} d {d} ffe {ffe} E {E} top {k}, T {T}: "
+                 f"{out[label]}")
+        del p, xs
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------- main
@@ -2480,6 +2815,7 @@ def main(argv: list[str]) -> int:
                 f"card runs {simulated}")
         if "serve" in phases:
             t0 = time.perf_counter()
+            check_moe_ffn(torch)
             served = {}
             for arch in SERVE_ARCHS:             # one model on the card at a time
                 served[arch] = run_serve(torch, counters, arch, n_requests=256)
@@ -2493,6 +2829,7 @@ def main(argv: list[str]) -> int:
             run_sharded_serve(torch, counters, n_requests=64)
             for arch in SERVE_ARCHS:
                 check_model(torch, arch)
+            check_hybrid(torch, counters)
             log(f"phase serve: {time.perf_counter() - t0:.1f} s")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
@@ -2515,6 +2852,10 @@ def main(argv: list[str]) -> int:
                "launches": sum(launches[w] for w in KERNEL_WRAPPERS.get(name, (name,))),
                "replay_launches": replayed.get(name, 0)}
         row.update({f: numbers[key][f] for f in fields if f in numbers[key]})
+        if name in SERVE_KERNELS:   # each served model's run that launched it
+            row["serve"] = {a: {"launches": out["launches"][name],
+                                "replay_launches": out["replay_launches"][name]}
+                            for a, out in served.items() if out["launches"][name]}
         if name in sharded:       # the cache kernels on the sharded and simulator paths
             row["shard"], row["sim"] = sharded[name], simulated[name]
         variants = {"_".join(k[1:]): {f: v[f] for f in fields if f in v}

@@ -4,6 +4,8 @@
         --index hnsw                                    # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
         --reduced --requests 48 --device cpu            # on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-3b-a800m --reduced --requests 48 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
         --reduced --requests 48 --shards 4 --replicas 0.25 --device cpu
 
@@ -11,8 +13,11 @@ The counterpart of ``repro.launch.serve``: feature-hash embeddings →
 category policies → hybrid cache (Algorithm 1) → batched prefill/decode on
 the PyTorch model for misses (a dense model such as llama3.2-3b through
 the attention kernels on the card, an ssm model such as falcon-mamba-7b
-through the selective-scan kernel; MoE, hybrid, encoder-decoder and VLM
-architectures raise until their slices are ported) → cache insertion, with adaptive load-based policy adjustment. ``--cache none``
+through the selective-scan kernel, an MoE model such as
+granite-moe-3b-a800m through grouped expert products, a hybrid one such as
+jamba through both mixers; the encoder-decoder (whisper) and VLM (llava)
+architectures raise ``NotImplementedError`` until their slice is ported)
+→ cache insertion, with adaptive load-based policy adjustment. ``--cache none``
 serves everything from the model (the uncached baseline). Weights are
 random, drawn on the device from ``seed`` with a ``torch.Generator``;
 they differ from the reference's ``jax.random`` draws, but hits and

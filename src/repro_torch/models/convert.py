@@ -4,7 +4,12 @@
 ``repro.models.Model.init_params`` returns, with every leaf turned into a
 numpy array) and builds the port's parameters from it: the same values,
 with the reference's group-stacked layers ("stack" → "sub<i>" → leaves of
-shape (n_groups, ...)) unstacked into one dict per layer. Tests and the
+shape (n_groups, ...)) unstacked into one dict per layer, in layer order
+(group g's sub i is layer g·n_sub + i: jamba's one group of 8 sublayers
+gives layers 0–7). Every leaf is carried as it is, an MoE layer's
+``router`` (d, E) fp32 and ``w_gate`` / ``w_up`` (E, d, ffe) and
+``w_down`` (E, ffe, d) too: the port's grouped product takes the experts
+in that order (``models/moe.py``). Tests and the
 engine-parity check use it, since ``torch.Generator`` cannot reproduce
 ``jax.random``'s draws. It imports nothing of JAX: bfloat16 leaves arrive
 as numpy arrays of the ``ml_dtypes`` bfloat16 type (2 bytes each) and are

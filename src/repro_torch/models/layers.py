@@ -1,6 +1,6 @@
 """Shared layers: norms, rotary embeddings, the SwiGLU MLP, parameter init.
 
-The counterpart of ``repro.models.layers`` for the dense and ssm families.
+The counterpart of ``repro.models.layers``.
 Parameters are plain dicts of tensors. The norm, the rotary angles and the
 SiLU run in fp32 whatever the activation dtype, as in the reference;
 matrix products take the activation dtype (``torch.matmul``, as the
@@ -106,3 +106,16 @@ def init_mamba(gen, cfg, device) -> dict:
             "A_log": uniform((di, ns), math.log(0.5), math.log(16.0)),
             "D": torch.ones(di, dtype=torch.float32, device=device),
             "w_out": normal(gen, (di, d), dt, di ** -0.5, device)}
+
+
+def init_moe(gen, cfg, device) -> dict:
+    """A mixture-of-experts FFN: the router (d, E) in fp32, and the experts'
+    ``w_gate`` / ``w_up`` (E, d, ffe) and ``w_down`` (E, ffe, d) in the
+    config's dtype."""
+    dt = dtype_of(cfg)
+    d, ffe, E = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    s_in, s_out = d ** -0.5, ffe ** -0.5
+    return {"router": normal(gen, (d, E), torch.float32, s_in, device),
+            "w_gate": normal(gen, (E, d, ffe), dt, s_in, device),
+            "w_up": normal(gen, (E, d, ffe), dt, s_in, device),
+            "w_down": normal(gen, (E, ffe, d), dt, s_out, device)}

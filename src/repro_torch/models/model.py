@@ -1,5 +1,5 @@
-"""Model facade for the dense and ssm families: init, cache, prefill, decode
-step.
+"""Model facade for the dense, moe, ssm and hybrid families: init, cache,
+prefill, decode step.
 
 The counterpart of ``repro.models.model`` for serving. Vocab is padded to
 a multiple of 2048 as in the reference, and padded rows score -1e30.
@@ -12,11 +12,12 @@ kept on the model, so logits stay fp32 (the same products of bf16 values,
 summed in fp32) at the cost of Vp·d·4 bytes of memory.
 
 An ssm model (falcon-mamba) carries its Mamba state in the cache instead
-of K/V; ``kv_len`` is still returned and advanced, as the reference does,
-so the serving loop is the same for both families. Training
-(``loss_fn``), whisper's encoder and the VLM's patch prefix are not
-ported: ``Model`` raises for those families, and ``transformer.check_ported``
-for MoE layers.
+of K/V, and a hybrid one (jamba) both; ``kv_len`` is still returned and
+advanced, as the reference does, so the serving loop is the same for
+every family. An MoE layer's load-balancing loss is discarded, as the
+reference's prefill and decode discard it. Training (``loss_fn``),
+whisper's encoder and the VLM's patch prefix are not ported: ``Model``
+raises ``NotImplementedError`` for the encdec and vlm families.
 """
 
 from __future__ import annotations

@@ -1,14 +1,17 @@
-"""The decoder stack for the dense and ssm families.
+"""The decoder stack for the dense, moe, ssm and hybrid families.
 
 The counterpart of ``repro.models.transformer``. The reference scans
 group-stacked parameters with ``lax.scan``; PyTorch runs eagerly, so the
 port keeps one parameter dict per layer and loops over them. A sublayer is
-attention + SwiGLU (dense) or a Mamba block with no MLP (ssm, falcon-mamba).
+a mixer, attention or a Mamba block, then its FFN: SwiGLU (dense), a
+mixture of experts (``models/moe.py``: granite-moe, kimi-k2, jamba's odd
+layers) or none (ssm, falcon-mamba). A hybrid stack (jamba) interleaves
+attention and Mamba layers, each with a dense or MoE FFN.
 
 The cache keeps one stacked tensor per kind of state, indexed by the
-layer's ordinal among the layers of its kind (so a hybrid stack slots in
-later): ``k`` and ``v`` (L_attn, B, S, Hkv, dh) for attention layers, the
-reference's per-layer (B, S, Hkv, dh) layout stacked; ``h`` (L_mamba, B,
+layer's ordinal among the layers of its kind (a hybrid stack holds both
+side by side): ``k`` and ``v`` (L_attn, B, S, Hkv, dh) for attention
+layers, the reference's per-layer (B, S, Hkv, dh) layout stacked; ``h`` (L_mamba, B,
 d_inner, N) fp32 and ``conv`` (L_mamba, B, K-1, d_inner) for Mamba layers.
 Prefill and decode write them IN PLACE where the reference builds new
 arrays (``dynamic_update_slice``, ``.at[].set``): the decode kernel reads a
@@ -16,8 +19,9 @@ layer's KV through a (B, Hkv, S, dh) view, and the scan kernel writes a
 layer's ``h`` over the state it read. Attention takes any query length, so
 the reference's query chunking (``_q_chunked_attend``) has no counterpart.
 
-Mixture-of-experts FFNs and cross-attention raise ``NotImplementedError``
-and name the slice that will port them.
+Cross-attention (whisper's decoder) raises ``NotImplementedError`` and
+names the slice that will port it. The MoE layers' load-balancing loss is
+discarded, as the reference's prefill and decode discard it.
 """
 
 from __future__ import annotations
@@ -28,12 +32,12 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (dtype_of, init_attention, init_mamba, init_mlp,
-                                       rms_norm, swiglu)
+                                       init_moe, rms_norm, swiglu)
 
 # What each unported branch waits for (ROADMAP queue 1).
 NOT_PORTED = {
-    "moe": "mixture-of-experts FFNs are not ported yet (ROADMAP queue 1)",
     "cross": "encoder-decoder cross-attention (whisper) is not ported yet "
              "(ROADMAP queue 1)",
 }
@@ -59,8 +63,6 @@ def check_ported(cfg) -> list[SubLayerSpec]:
     """The layer pattern, or NotImplementedError for a branch not ported."""
     pattern = layer_pattern(cfg)
     for spec in pattern:
-        if spec.mlp == "moe":
-            raise NotImplementedError(f"{cfg.name}: {NOT_PORTED['moe']}")
         if spec.cross:
             raise NotImplementedError(f"{cfg.name}: {NOT_PORTED['cross']}")
     return pattern
@@ -77,6 +79,9 @@ def init_sublayer(gen, cfg, spec: SubLayerSpec, device) -> dict:
     if spec.mlp == "dense":
         p["ln_mlp"] = torch.zeros(d, dtype=torch.float32, device=device)
         p["mlp"] = init_mlp(gen, d, cfg.d_ff, dtype_of(cfg), device)
+    elif spec.mlp == "moe":
+        p["ln_mlp"] = torch.zeros(d, dtype=torch.float32, device=device)
+        p["mlp"] = init_moe(gen, cfg, device)
     return p
 
 
@@ -176,6 +181,10 @@ def sublayer_apply(x, sp, cfg, spec: SubLayerSpec, *, mode: str, positions,
         h = rms_norm(x, sp["ln_mlp"], cfg.norm_eps)
         x = x + swiglu(h, sp["mlp"]["w_gate"], sp["mlp"]["w_up"],
                        sp["mlp"]["w_down"]).to(x.dtype)
+    elif spec.mlp == "moe":
+        h = rms_norm(x, sp["ln_mlp"], cfg.norm_eps)
+        y, _ = moe_mod.moe_apply(h, sp["mlp"], cfg)
+        x = x + y.to(x.dtype)
     return x
 
 

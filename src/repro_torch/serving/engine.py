@@ -18,12 +18,13 @@ keeps the shape, and the tokens, of the eager loop):
 
 The tokens come to the host in ONE copy after the last step, never one
 per token. On the CPU the same programs run eagerly. The programs are
-the same for every ported family: a dense model's cache holds K/V, an
-ssm model's (falcon-mamba) its Mamba state, and both take ``kv_len``.
-Prompts are fixed at ``prompt_len``, so no padding token ever enters a
-recurrence. The
-sharded cache tier (``core/shard.py``) is not ported yet, so ``cache`` is
-a ``SemanticCache``.
+the same for every ported family: a dense or MoE model's cache holds
+K/V, an ssm model's (falcon-mamba) its Mamba state, a hybrid one's
+(jamba) both, and all take ``kv_len``. An MoE layer's routing keeps
+static shapes and never syncs with the host (``models/moe.py``), so it
+is captured with the rest. Prompts are fixed at ``prompt_len``, so no
+padding token ever enters a recurrence. ``cache`` is a ``SemanticCache``
+or the sharded tier's ``ShardedSemanticCache`` (``core/shard.py``).
 
 The end-to-end path (``repro_torch.launch.serve``):
 

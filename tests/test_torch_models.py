@@ -49,11 +49,11 @@ def test_configs_field_equal(arch):
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if jget_config(a).family not in ("dense", "ssm")])
+                                  if jget_config(a).family in ("encdec", "vlm")])
 def test_unported_families_raise(arch):
-    """MoE, hybrid, encoder-decoder and VLM models raise and name what is
-    missing; they are later slices (the ssm family is held by
-    ``test_torch_mamba.py``)."""
+    """Encoder-decoder and VLM models raise and name what is missing; they
+    are a later slice (the ssm family is held by ``test_torch_mamba.py``,
+    the moe and hybrid families by ``test_torch_moe_models.py``)."""
     with pytest.raises(NotImplementedError):
         Model(get_config(arch).reduced(), device="cpu")
 

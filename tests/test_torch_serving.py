@@ -202,16 +202,20 @@ def _report(out: str) -> list[str]:
     return [ln.split(", mean_latency=")[0] for ln in lines]
 
 
-@pytest.mark.parametrize("shards", ["1", "4"])
-def test_cli_counters_match_reference(shards, monkeypatch, capsys):
+@pytest.mark.parametrize("shards,arch", [
+    pytest.param("1", "llama3.2-3b", id="1"),
+    pytest.param("4", "llama3.2-3b", id="4"),
+    pytest.param("1", "granite-moe-3b-a800m", id="granite-moe-3b-a800m-1")])
+def test_cli_counters_match_reference(shards, arch, monkeypatch, capsys):
     """``python -m repro_torch.launch.serve --arch llama3.2-3b --reduced
     --requests 48 [--shards 4] --device cpu`` searches on the device (CPU
     tensors) by default and prints the counters of the reference's CLI
-    run with ``--use-device``."""
+    run with ``--use-device``; so does ``--arch granite-moe-3b-a800m``
+    (the MoE family, its routed FFN on CPU tensors)."""
     import repro.launch.serve as jserve
 
     import repro_torch.launch.serve as tserve
-    args = ["serve", "--arch", "llama3.2-3b", "--reduced", "--requests", "48",
+    args = ["serve", "--arch", arch, "--reduced", "--requests", "48",
             "--shards", shards]
     monkeypatch.setattr("sys.argv", args + ["--use-device"])
     jserve.main()
