@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive repro_torch's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--phases build,kernels,index,main,parity,shard,sim,serve]
+    python3 chip_smoke.py [--phases build,kernels,index,main,parity,shard,sim,serve,encdec_vlm]
 
 Run from the root of a checkout: it puts ``src/`` on ``sys.path`` itself,
 builds the CUDA kernels into ``build/repro_torch/`` with ``nvcc`` (sm_90a)
@@ -31,7 +31,15 @@ Phases (any failure exits non-zero and prints no result):
              attention kernels in fp32 and bf16 at the serve shape and at a
              long one (prefill 4,096; decode 32,768, and decode 32,768 with
              gemma2's window of 4,096; both also at granite-moe's serve
-             shape, bf16, dh 64 over 24 / 8 heads), mamba_scan with fp32 and bf16 x at
+             shape, bf16, dh 64 over 24 / 8 heads; flash_attention fp32 and
+             bf16 also at whisper's encoder (B 8, 20 heads, 1,500 x 1,500,
+             dh 64, non-causal), its cross-attention at prefill (64 queries
+             against 1,500 keys), at a decode step (Sq 1) and its causal
+             self-attention (64 x 64), and llava's causal prefill (B 8,
+             2,944, 32 / 8 heads, dh 128); decode_attention at whisper's
+             decode step, 20 / 20 heads, at kv_len 1,500 as the yardstick
+             of the Sq 1 cross call, and at llava's decode step, 32 / 8
+             heads, dh 128, kv_len 2,945 to 2,960), mamba_scan with fp32 and bf16 x at
              N 16 and 8: falcon-mamba-7b's serve prefill (8 × 64 × 8192),
              its decode step (L 1, the state read from h0 and written back
              over it in place, held bit for bit against a separate h_out)
@@ -129,7 +137,26 @@ Phases (any failure exits non-zero and prints no result):
              queries, seed 42) for {hnsw, flat} x {1, 4} shards on the
              card: launches as in main; flat equal to the same runs on
              the CPU and 4 shards to one; hybrid against the vector DB
-             and no cache as the reference's simulator tests hold them.
+             and no cache as the reference's simulator tests hold them;
+9. encdec_vlm — whisper-large-v3 (32 encoder + 32 decoder layers, d
+             1,280, 20 / 20 heads, dh 64) and llava-next-mistral-7b (32
+             layers, d 4,096, 32 / 8 heads, dh 128, 2,880 patches) at full
+             width and depth, seeded bf16 weights, through the model
+             facade (the engine passes no audio or patches): 64 text
+             tokens, 16 new, at batch 8 and 3, whisper with audio (B, 1,500,
+             1,280), llava with patches (B, 2,880, 4,096). Prefill and
+             decode steps replay graphs (``core/graphs.py``) through the
+             port's ``serving.engine.generate``, timed by CUDA events, the
+             first replay of each graph traced; a whisper prefill records
+             96 flash_attention launches (32 encoder, 32 self, 32 cross)
+             and a decode step 32
+             flash_attention (cross, Sq 1) and 32 decode_attention, a
+             llava prefill 32 flash_attention (kv_len 2,944 after it) and a
+             decode step 32 decode_attention; graph tokens equal the eager
+             loop's; peak memory and the decode step's bound logged. Then
+             each at full width and 2 layers, decode against prefill and
+             card against CPU within 0.1 (llava's CPU side over 576
+             patches).
 
 The last lines are a ``{"kernels": [...]}`` object (``launches``: those
 made at wrapper calls in the run of the kernel's path; ``replay_launches``:
@@ -138,8 +165,9 @@ replays; for the cache kernels also ``shard`` and ``sim``, the same counts
 in the 4-shard card runs of phase 7, with ``per_shard`` replays (delta
 flushes for scatter_rows), and in the hybrid card runs of phase 8; for
 the model kernels ``serve``, the same two counts in each served model's
-run that launched it), the card's name and power limit from nvidia-smi, and
-``{"ok": true, "device": {...}}``.
+run that launched it, and ``encdec_vlm``, those of phase 9's runs), the
+card's name and power limit from nvidia-smi, and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -878,50 +906,92 @@ def sdpa_ms(torch, q, k, v, *, causal, mask=None) -> float:
         q, k, v, attn_mask=mask, is_causal=causal, enable_gqa=True)])
 
 
+# flash_attention's timed shapes: (label, B, Hq, Hkv, Sq, Skv, dh, causal,
+# dtypes, generator). llama's serve shape and a long prefill; granite-moe's
+# serve shape (bf16, dh 64); whisper-large-v3's (20 / 20 heads, dh 64,
+# 1,500 encoder frames: the encoder, the cross-attention of a prefill and
+# of a decode step, Sq 1 as in the reference, and the decoder's causal
+# self-attention) and llava-next-mistral-7b's prefill (32 / 8 heads, dh
+# 128, 2,880 patches + 64 tokens). Each generator draws its rows' inputs
+# in this order, so a row added to one leaves the others' inputs as they
+# were.
+FLASH_SHAPES = (
+    ("serve", 8, HQ, HKV, 64, 64, DH, True, ("float32", "bfloat16"), "llama"),
+    ("long", 1, HQ, HKV, 4096, 4096, DH, True, ("float32", "bfloat16"), "llama"),
+    ("serve_dh64", 8, HQ, HKV, 64, 64, 64, True, ("bfloat16",), "granite"),
+    ("whisper_enc", 8, 20, 20, 1500, 1500, 64, False, ("float32", "bfloat16"), "encdec"),
+    ("whisper_cross_prefill", 8, 20, 20, 64, 1500, 64, False, ("float32", "bfloat16"),
+     "encdec"),
+    ("whisper_cross_decode", 8, 20, 20, 1, 1500, 64, False, ("float32", "bfloat16"),
+     "encdec"),
+    ("llava_prefill", 8, 32, 8, 2944, 2944, 128, True, ("float32", "bfloat16"), "encdec"),
+    ("whisper_self_prefill", 8, 20, 20, 64, 64, 64, True, ("float32", "bfloat16"),
+     "encdec"))
+# decode_attention's timed shapes through the model's (B, S, Hkv, dh)
+# cache view: (label, B, Hq, Hkv, S, dh, least kv_len, dtypes, generator).
+# kv_len is drawn in [least, S], one sequence at S (and, in the second
+# input set of a ragged row, one at 0). llama's serve shape and a long
+# one; granite-moe's; whisper's decode step (g = 1), and, as the yardstick
+# of its Sq = 1 cross call (on no path), every kv_len 1,500; llava's
+# decode step (g = 4) after its 2,944-position prefill.
+DECODE_SHAPES = (
+    ("serve", 8, HQ, HKV, 80, DH, 65, ("float32", "bfloat16"), "llama"),
+    ("decode_32k", 8, HQ, HKV, 32768, DH, 1, ("float32", "bfloat16"), "llama"),
+    ("serve_dh64", 8, HQ, HKV, 80, 64, 65, ("bfloat16",), "granite"),
+    ("whisper_decode", 8, 20, 20, 80, 64, 65, ("bfloat16",), "encdec"),
+    ("whisper_cross_yardstick", 8, 20, 20, 1500, 64, 1500, ("bfloat16",), "encdec"),
+    ("llava_decode", 8, 32, 8, 2960, 128, 2945, ("bfloat16",), "encdec"))
+ATTN_SEEDS = {"llama": 2027, "granite": 2031, "encdec": 2033}
+
+
 def check_attention(torch, dev) -> dict:
+    """flash_attention (``FLASH_SHAPES``) held against its plain version
+    (``flash_close``) and decode_attention (``DECODE_SHAPES``) against
+    its plain version (``attn_close``, with kv_len 0, softcap and a window
+    held too), each timed beside its plain version, SDPA and its bound;
+    flash's window / softcap / kv_offset / ragged cases and every head
+    dim held, not timed."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(2027)
+    gens = {}
+    for name, seed in ATTN_SEEDS.items():
+        gens[name] = torch.Generator(device=dev)
+        gens[name].manual_seed(seed)
+    gen = gens["llama"]
     out = {}
-
-    # granite-moe's serve shapes (bf16, dh 64) draw from their own
-    # generator, so every other shape's inputs stay as they were drawn
-    gen64 = torch.Generator(device=dev)
-    gen64.manual_seed(2031)
 
     def rnd(*shape, dtype, g=gen):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
-    # -- flash_attention, causal: serve shape, a long prefill, granite's ---
-    for label, B, S, dh, dtypes in (
-            ("serve", 8, 64, DH, (torch.float32, torch.bfloat16)),
-            ("long", 1, 4096, DH, (torch.float32, torch.bfloat16)),
-            ("serve_dh64", 8, 64, 64, (torch.bfloat16,))):
-        g = gen64 if dh == 64 else gen
-        for dtype in dtypes:
-            sets = [(rnd(B, HQ, S, dh, dtype=dtype, g=g), rnd(B, HKV, S, dh, dtype=dtype, g=g),
-                     rnd(B, HKV, S, dh, dtype=dtype, g=g))
-                    for _ in range(2 if S < 1024 else 1)]
-            err = max(flash_close(torch, fa, q, k, v, causal=True) for q, k, v in sets)
+    for label, B, Hq, Hkv, Sq, Skv, dh, causal, dtypes, g in FLASH_SHAPES:
+        for dtype in (getattr(torch, t) for t in dtypes):
+            torch.cuda.empty_cache()
+            sets = [(rnd(B, Hq, Sq, dh, dtype=dtype, g=gens[g]),
+                     rnd(B, Hkv, Skv, dh, dtype=dtype, g=gens[g]),
+                     rnd(B, Hkv, Skv, dh, dtype=dtype, g=gens[g]))
+                    for _ in range(2 if Sq * Skv < 1024 * 1024 else 1)]
+            err = max(flash_close(torch, fa, q, k, v, what=f"flash_attention {label}",
+                                  causal=causal) for q, k, v in sets)
             esz = sets[0][0].element_size()
-            nbytes = esz * (2 * B * HQ * S * dh + 2 * B * HKV * S * dh)
-            flops = 4 * B * HQ * dh * S * (S + 1) // 2      # causal pairs
-            rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
-            b_fa = bound(nbytes, flops, rate)
+            nbytes = esz * (2 * B * Hq * Sq * dh + 2 * B * Hkv * Skv * dh)
+            pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv   # Sq == Skv when causal
+            flops = 4 * B * Hq * dh * pairs
+            b = bound(nbytes, flops, BF16_OPS_PER_S if dtype == torch.bfloat16
+                      else FP32_OPS_PER_S)
             q, k, v = sets[0]
-            out[("flash_attention", label, str(dtype)[6:])] = dict(
+            row = out[("flash_attention", label, str(dtype)[6:])] = dict(
                 max_abs_err=err,
-                ms=graph_ms(torch, [lambda s=s: fa.flash_attention(*s, causal=True)
+                ms=graph_ms(torch, [lambda s=s: fa.flash_attention(*s, causal=causal)
                                     for s in sets]),
                 plain_ms=graph_ms(torch, [lambda s=s: fa.flash_attention_plain(
-                    *s, causal=True) for s in sets]),
-                bound_ms=b_fa[0], bound_by=b_fa[1],
-                library_ms=sdpa_ms(torch, q, k, v, causal=True), bytes=nbytes,
+                    *s, causal=causal) for s in sets]),
+                bound_ms=b[0], bound_by=b[1],
+                library_ms=sdpa_ms(torch, q, k, v, causal=causal), bytes=nbytes,
                 flops=flops)
-            log(f"kernels: flash_attention {label} B={B} S={S} dh={dh} {dtype} "
-                f"{out[('flash_attention', label, str(dtype)[6:])]}")
+            log_card(f"kernels: flash_attention {label} B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} "
+                     f"Skv={Skv} dh={dh} causal={causal} {dtype} {row}")
+            del sets, q, k, v
     # window, softcap, kv_offset and an Skv edge off the tile grid: held,
     # not timed
     for dtype in (torch.float32, torch.bfloat16):
@@ -944,25 +1014,19 @@ def check_attention(torch, dev) -> dict:
         log(f"kernels: flash_attention bf16 dh={dh}: serve shape and edge cases held "
             f"(max |err| {err:.3g})")
 
-    # -- decode_attention through the model's (B, S, Hkv, dh) cache view ---
-    # llama's serve shape (dh 128), a long one, and granite-moe's (dh 64)
-    for label, B, S, dh, dtypes in (
-            ("serve", 8, 80, DH, (torch.float32, torch.bfloat16)),
-            ("decode_32k", 8, 32768, DH, (torch.float32, torch.bfloat16)),
-            ("serve_dh64", 8, 80, 64, (torch.bfloat16,))):
-        g = gen64 if dh == 64 else gen
-        for dtype in dtypes:
+    for label, B, Hq, Hkv, S, dh, lo, dtypes, g in DECODE_SHAPES:
+        what = f"decode_attention {label}"
+        for dtype in (getattr(torch, t) for t in dtypes):
             sets = []
-            for i in range(2 if S < 1024 else 1):
-                kc = rnd(B, S, HKV, dh, dtype=dtype, g=g)
-                vc = rnd(B, S, HKV, dh, dtype=dtype, g=g)
-                lo = 65 if S < 1024 else 1
-                lens = torch.randint(lo, S + 1, (B,), generator=g, device=dev,
+            for i in range(2 if S < 4096 else 1):
+                kc = rnd(B, S, Hkv, dh, dtype=dtype, g=gens[g])
+                vc = rnd(B, S, Hkv, dh, dtype=dtype, g=gens[g])
+                lens = torch.randint(lo, S + 1, (B,), generator=gens[g], device=dev,
                                      dtype=torch.int32)
                 lens[0] = S
-                if i == 1:
+                if i == 1 and lo < S:
                     lens[1] = 0                               # attends to nothing
-                sets.append((rnd(B, HQ, dh, dtype=dtype, g=g), kc.transpose(1, 2),
+                sets.append((rnd(B, Hq, dh, dtype=dtype, g=gens[g]), kc.transpose(1, 2),
                              vc.transpose(1, 2), lens))
             err = 0.0
             for q, k, v, lens in sets:
@@ -971,21 +1035,22 @@ def check_attention(torch, dev) -> dict:
                 for ln in (lens, empty):
                     got = da.decode_attention(q, k, v, ln)
                     err = max(err, attn_close(torch, got, da.decode_attention_plain(
-                        q, k, v, kv_len=ln)))
-                    require(not bool(got[ln == 0].any()), "decode: kv_len 0 must give 0")
+                        q, k, v, kv_len=ln), what=what))
+                    require(not bool(got[ln == 0].any()), f"{what}: kv_len 0 must give 0")
                 # softcap, and softcap with a window: held, not timed
                 for kw in (dict(softcap=30.0), dict(softcap=30.0, window=48)):
                     attn_close(torch, da.decode_attention(q, k, v, lens, **kw),
-                               da.decode_attention_plain(q, k, v, kv_len=lens, **kw))
+                               da.decode_attention_plain(q, k, v, kv_len=lens, **kw),
+                               what=what)
             esz = sets[0][0].element_size()
             live = statistics.mean(int(s[3].sum()) for s in sets)
-            nbytes = esz * (2 * live * HKV * dh + 2 * B * HQ * dh) + 4 * B
-            flops = 4 * HQ * dh * live
+            nbytes = esz * (2 * live * Hkv * dh + 2 * B * Hq * dh) + 4 * B
+            flops = 4 * Hq * dh * live
             b_da = bound(nbytes, flops, BF16_OPS_PER_S if dtype == torch.bfloat16
                          else FP32_OPS_PER_S)
             q, k, v, lens = sets[0]
             mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-            out[("decode_attention", label, str(dtype)[6:])] = dict(
+            row = out[("decode_attention", label, str(dtype)[6:])] = dict(
                 max_abs_err=err, splits=da.num_splits(S, None, da.CHUNK), chunk=da.CHUNK,
                 ms=graph_ms(torch, [lambda s=s: da.decode_attention(*s) for s in sets]),
                 plain_ms=graph_ms(torch, [lambda s=s: da.decode_attention_plain(
@@ -993,15 +1058,19 @@ def check_attention(torch, dev) -> dict:
                 bound_ms=b_da[0], bound_by=b_da[1],
                 library_ms=sdpa_ms(torch, q[:, :, None], k, v, causal=False, mask=mask),
                 bytes=nbytes, flops=flops)
-            log(f"kernels: decode_attention {label} B={B} S={S} dh={dh} {dtype} "
-                f"{out[('decode_attention', label, str(dtype)[6:])]}")
+            log_card(f"kernels: decode_attention {label} B={B} Hq={Hq} Hkv={Hkv} S={S} "
+                     f"dh={dh} {dtype} {row}")
             if label == "decode_32k":
-                row = out[("decode_attention", label, str(dtype)[6:])]
                 row["chunk_ms"] = chunk_sweep(torch, da, sets, None)
                 log(f"kernels: decode_attention decode_32k {dtype} ms by chunk "
                     f"{row['chunk_ms']}")
                 out[("decode_attention", f"decode_32k_w{WINDOW}", str(dtype)[6:])] = \
                     windowed_decode(torch, da, sets, dtype)
+    cross = out[("flash_attention", "whisper_cross_decode", "bfloat16")]["ms"]
+    yard = out[("decode_attention", "whisper_cross_yardstick", "bfloat16")]["ms"]
+    log_card(f"kernels: whisper's decode-step cross-attention (Sq 1 against 1,500 keys): "
+             f"flash_attention {cross:.6f} ms (64-row blocks, 63 rows dead), "
+             f"decode_attention at kv_len 1,500 {yard:.6f} ms (yardstick, on no path)")
     torch.cuda.empty_cache()
     return out
 
@@ -2116,7 +2185,8 @@ def kernel_summary(torch, prof, wall_us: float) -> str:
 
 
 class GenerateTimer:
-    """Times generation on the card while ``run_serving`` runs: CUDA
+    """Times generation on the card while ``run_serving`` (or the port's
+    ``serving.engine.generate``) runs: CUDA
     events around every replay of a prefill and a decode graph (read
     after the run, so the serve loop never waits for them; one replay of
     each, the fourth, runs under torch.profiler instead), and the host
@@ -2183,7 +2253,7 @@ class GenerateTimer:
                     out = orig(programs, key, fn, inputs)
                     torch.cuda.synchronize()
                     wall_us = (time.perf_counter() - t0) * 1e6
-                self.profiles[kind] = kernel_summary(torch, prof, wall_us)
+                self.profiles[kind] = f"B {key[1]}, " + kernel_summary(torch, prof, wall_us)
                 return out
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -2194,23 +2264,31 @@ class GenerateTimer:
             return out
         return call
 
-    def ms(self, kind) -> list[float]:
-        return [s.elapsed_time(e) for s, e, _ in self.events[kind]]
+    def ms(self, kind, B: int | None = None) -> list[float]:
+        """The timed replays of ``kind`` (at batch ``B`` only, if given),
+        ms each."""
+        return [s.elapsed_time(e) for s, e, b in self.events[kind] if B in (None, b)]
 
 
-def eager_tokens(torch, model, params, tokens, max_len: int, new: int):
-    """Greedy generation as the plain eager loop over ``Model.prefill``
-    and ``Model.decode_step`` (the yardstick of the captured programs)."""
+def eager_tokens(torch, model, params, tokens, new: int, extra=None):
+    """Greedy generation of ``new`` tokens as the plain eager loop over
+    ``Model.prefill`` and ``Model.decode_step`` (the yardstick of the
+    captured programs), every step's logits required finite; ``extra``
+    the family's input beside the tokens (``family_inputs``)."""
     V = model.cfg.vocab_size
+    extra = extra or {}
+    max_len = prefix_len(extra) + tokens.shape[1] + new
     with torch.inference_mode():
         logits, cache, kv_len = model.prefill(
-            params, {"tokens": torch.from_numpy(tokens).cuda()}, max_len)
-        tok = logits[:, :V].argmax(-1).to(torch.int32)
-        out = [tok]
-        for _ in range(new - 1):
-            logits, cache, kv_len = model.decode_step(params, cache, tok, kv_len)
+            params, {"tokens": torch.from_numpy(tokens).to(model.device), **extra}, max_len)
+        out = []
+        for step in range(new):
+            require(bool(torch.isfinite(logits[:, :V]).all()),
+                    f"{model.cfg.name}: non-finite logits at step {step}")
             tok = logits[:, :V].argmax(-1).to(torch.int32)
             out.append(tok)
+            if step < new - 1:
+                logits, cache, kv_len = model.decode_step(params, cache, tok, kv_len)
         return torch.stack(out, dim=1).cpu().numpy()
 
 
@@ -2325,7 +2403,7 @@ def run_serve(torch, counters, arch: str, n_requests: int) -> dict:
     for B in (8, 3):
         toks = rng.integers(2, cfg.vocab_size, (B, 64)).astype(np.int32)
         got = engine._generate(engine.params, toks)
-        want = eager_tokens(torch, engine.model, engine.params, toks, 80, 16)
+        want = eager_tokens(torch, engine.model, engine.params, toks, 16)
         require(np.array_equal(got, want), f"serve {arch}: B={B} graph tokens "
                 f"{got.tolist()} differ from the eager loop's {want.tolist()}")
     log(f"serve {arch}: graph tokens equal the eager loop's for B = 8 and B = 3 "
@@ -2355,16 +2433,20 @@ def decode_step_bound(params, cfg, batch: float, *, prompt_len: int,
     batch routes to: under uniform routing E·(1 − (1 − k/E)^batch) of E
     (33.3 of granite-moe's 40 at batch 8), and does k experts' products a
     token, not E. The port's fp32 head copy is a cost of its design,
-    reported apart."""
+    reported apart. An encdec decoder (whisper) also reads each layer's
+    cross K/V of the encoder output, and never its cross ``wk`` / ``wv``
+    (prefill made the K/V with them); its encoder is not read at all."""
     head = params["head"]
     esz = head.element_size()
     read = [params["layers"], params["final_norm"], head]
     experts = [layer["mlp"][n] for layer in params["layers"]
                if "router" in layer.get("mlp", {}) for n in EXPERT_LEAVES]
     routed = {id(t) for t in experts}
+    unread = {id(layer["cross"][n]) for layer in params["layers"] if "cross" in layer
+              for n in ("wk", "wv")}
 
     def dense(of):
-        return tree_sum(read, lambda t: 0 if id(t) in routed else of(t))
+        return tree_sum(read, lambda t: 0 if id(t) in routed | unread else of(t))
 
     hit = expected_experts(cfg.n_experts, cfg.moe_top_k, batch) if experts else 0.0
     exp_bytes = tree_sum(experts, lambda t: t.nbytes) * (hit / max(cfg.n_experts, 1))
@@ -2374,14 +2456,18 @@ def decode_step_bound(params, cfg, batch: float, *, prompt_len: int,
     # decode step i of a generate attends prompt_len + 1 + i positions
     live = prompt_len + 1 + (new_tokens - 2) / 2
     kv = 2 * kinds.count("attn") * cfg.n_kv_heads * cfg.head_dim * esz * live * batch
+    cross = (2 * cfg.n_layers * batch * cfg.enc_ctx * cfg.n_kv_heads * cfg.head_dim * esz
+             if cfg.family == "encdec" else 0)
     di = cfg.ssm_d_inner
     ssm = (2 * kinds.count("mamba") * batch
            * (di * cfg.ssm_d_state * 4 + (cfg.ssm_d_conv - 1) * di * esz))
     state = " and ".join(
         text for n, text in ((kinds.count("attn"), "live KV"),
+                             (cross, "the cross K/V"),
                              (kinds.count("mamba"), "the Mamba state read and written"))
         if n)
-    nbytes = dense(lambda t: t.nbytes) + exp_bytes + kv + ssm + batch * cfg.d_model * esz
+    nbytes = (dense(lambda t: t.nbytes) + exp_bytes + kv + cross + ssm
+              + batch * cfg.d_model * esz)
     flops = 2 * batch * dense(lambda t: t.numel()) + exp_flops
     t, by = bound(nbytes, flops, BF16_OPS_PER_S)
     extra = head.numel() * (4 - esz)
@@ -2390,7 +2476,7 @@ def decode_step_bound(params, cfg, batch: float, *, prompt_len: int,
             if experts else "")
     return dict(decode_bound_ms=t, decode_bound_by=by, decode_bytes=nbytes,
                 decode_state=state, decode_experts=note, decode_experts_hit=hit,
-                fp32_head_extra_ms=extra / HBM_BYTES_PER_S * 1e3)
+                decode_cross_bytes=cross, fp32_head_extra_ms=extra / HBM_BYTES_PER_S * 1e3)
 
 
 def tree_to(tree, device):
@@ -2481,20 +2567,42 @@ def split_calls(calls, B: int, S: int) -> tuple[list, list]:
     return head, last
 
 
-def decode_vs_prefill(torch, model, params, toks, label: str) -> dict:
+def family_inputs(torch, cfg, B: int, gen, n_patches: int | None = None) -> dict:
+    """The input beside the tokens that whisper (audio: frame embeddings
+    (B, 1,500, 1,280)) or llava (patches: (B, n_patches, 4,096)) takes,
+    N(0, 1) in bf16 from ``gen`` on its device; {} for other families."""
+    if cfg.family == "encdec":
+        shape, key = (B, cfg.enc_ctx, cfg.enc_dim), "audio"
+    elif cfg.family == "vlm":
+        shape, key = (B, cfg.n_patches if n_patches is None else n_patches,
+                      cfg.d_model), "patches"
+    else:
+        return {}
+    return {key: torch.randn(shape, generator=gen, device=gen.device).to(torch.bfloat16)}
+
+
+def prefix_len(extra: dict) -> int:
+    """Positions a VLM's patches add before the text (0 without them)."""
+    return extra["patches"].shape[1] if "patches" in extra else 0
+
+
+def decode_vs_prefill(torch, model, params, toks, label: str, extra=None) -> dict:
     """Decode of token S-1 after a prefill of S-1 against the prefill of
     all S, on the card, each MoE layer forced onto the full prefill's
-    choices (``Routing``). Returns the logits' largest difference, the
-    full prefill's (logits, cache, kv_len) and the routing flips."""
+    choices (``Routing``); ``extra`` the family's input beside the tokens
+    (``family_inputs``). Returns the logits' largest difference, the full
+    prefill's (logits, cache, kv_len) and the routing flips."""
     B, S = toks.shape
     V = model.cfg.vocab_size
+    extra = extra or {}
+    room = prefix_len(extra) + S + 8
     with Routing(torch) as full:
-        lf, cf, kf = model.prefill(params, {"tokens": toks}, S + 8)
+        lf, cf, kf = model.prefill(params, {"tokens": toks, **extra}, room)
     head, last = split_calls(full.calls["cuda"], B, S)
     n = len(head)
     forced = [c[1] for c in head] + [c[1] for c in last]
     with Routing(torch, force=lambda dev, i: forced[i] if i < 2 * n else None) as part:
-        _, cache, kvl = model.prefill(params, {"tokens": toks[:, :S - 1]}, S + 8)
+        _, cache, kvl = model.prefill(params, {"tokens": toks[:, :S - 1], **extra}, room)
         ld, _, _ = model.decode_step(params, cache, toks[:, S - 1].cuda(), kvl)
     flips, dx = near_ties(torch, head + last, part.calls["cuda"], label) if n else (0, 0.0)
     err = float((lf[:, :V] - ld[:, :V]).abs().max())
@@ -2502,18 +2610,27 @@ def decode_vs_prefill(torch, model, params, toks, label: str) -> dict:
     return dict(err=err, flips=flips, router_dx=dx, full=(lf, cf, kf))
 
 
+# llava's card-vs-CPU check prepends one anyres tile of patches, not 5: a
+# 2,944-position bf16 prefill of two 4,096-wide layers is slow on the host
+CPU_PATCHES = 576
+
+
 def check_model(torch, arch: str) -> dict:
-    """``arch`` at full width and 2 layers, one seeded set of weights on
-    the card and a copy on the CPU: decode of token S-1 against the prefill
-    of S tokens on the card, and card against CPU logits and greedy tokens
-    over a prefill and 4 decode steps. An MoE model's card run takes the
-    reference computation's expert choices (``Routing``): the full
-    prefill's for the decode, the CPU's for the card."""
+    """``arch`` at full width and 2 layers (whisper: 2 encoder and 2
+    decoder layers), one seeded set of weights on the card and a copy on
+    the CPU: decode of token S-1 against the prefill of S tokens on the
+    card, and card against CPU logits and greedy tokens over a prefill and
+    4 decode steps. An MoE model's card run takes the reference
+    computation's expert choices (``Routing``): the full prefill's for the
+    decode, the CPU's for the card. Whisper takes seeded audio (B, 1,500,
+    1,280) in both; llava seeded patches, all 2,880 on the card and the
+    first CPU_PATCHES of them in the card-vs-CPU comparison."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
-    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    cfg = dataclasses.replace(get_config(arch), n_layers=2,
+                              enc_layers=min(get_config(arch).enc_layers, 2))
     card = Model(cfg, device="cuda")
     params = card.init_params(0)
     host = tree_to(params, "cpu")
@@ -2521,12 +2638,22 @@ def check_model(torch, arch: str) -> dict:
     V, B, S = cfg.vocab_size, 2, 64
     gen = torch.Generator().manual_seed(7)
     toks = torch.randint(2, V, (B, S), generator=gen, dtype=torch.int32)
-    dp = decode_vs_prefill(torch, card, params, toks, f"model {arch}")
+    extra = family_inputs(torch, cfg, B, gen)
+    dp = decode_vs_prefill(torch, card, params, toks, f"model {arch}",
+                           {k: t.cuda() for k, t in extra.items()})
+    cut = ""
+    if "patches" in extra:
+        extra = {"patches": extra["patches"][:, :CPU_PATCHES]}
+        cut = (f"; card vs CPU over {CPU_PATCHES} of the {cfg.n_patches} patches "
+               f"(the CPU side cut), decode vs prefill over all of them")
+    room = prefix_len(extra) + S + 8
     errs, agree, clear_n = [], 0, 0
+    t_cpu = time.perf_counter()
     with Routing(torch, force=lambda dev, i: (routes.calls["cpu"][i][1]
                                               if dev == "cuda" else None)) as routes:
-        lh, ch, kh = cpu.prefill(host, {"tokens": toks}, S + 8)
-        lc, cc, kc = card.prefill(params, {"tokens": toks}, S + 8)
+        lh, ch, kh = cpu.prefill(host, {"tokens": toks, **extra}, room)
+        lc, cc, kc = card.prefill(params, {"tokens": toks, **{k: t.cuda() for k, t
+                                                               in extra.items()}}, room)
         for step in range(5):
             a, b = lc[:, :V].cpu(), lh[:, :V]
             require(bool(torch.isfinite(a).all()), f"model {arch}: non-finite logits")
@@ -2553,7 +2680,8 @@ def check_model(torch, arch: str) -> dict:
     log(f"model {arch}: 2-layer full width, decode vs prefill max |dlogit| "
         f"{dp['err']:.5f}; card vs CPU max |dlogit| {max(errs):.5f} over prefill + 4 "
         f"decode steps (tolerance {LOGIT_TOL}); greedy tokens equal {agree}/{5 * B} "
-        f"({clear_n} beyond the margin){routing}")
+        f"({clear_n} beyond the margin){routing}{cut}; card and CPU runs "
+        f"{time.perf_counter() - t_cpu:.1f} s")
     del card, params, cc, dp["full"]
     torch.cuda.empty_cache()
     return dict(decode_vs_prefill=dp["err"], card_vs_cpu=max(errs))
@@ -2618,8 +2746,160 @@ def check_hybrid(torch, counters) -> dict:
     return dict(decode_vs_prefill=dp["err"], launches=counts, peak_gib=peak)
 
 
+# ---------------------------------------------------------------- phase 9
+ENCDEC_VLM_ARCHS = ("whisper-large-v3", "llava-next-mistral-7b")
+GEN_PROMPT, GEN_NEW = 64, 16   # text tokens of a prompt, tokens generated
+# generations per batch size: each graph's first replay is traced, the
+# fourth prefill (B 3's second) and decode (B 8's) replays are profiled,
+# the rest are timed
+GEN_RUNS = {8: 4, 3: 3}
+
+
+def path_launches(cfg) -> dict:
+    """The model kernels one prefill and one decode step launch: whisper's
+    prefill one flash_attention per encoder layer (non-causal over the
+    frames) and two per decoder layer (causal self, non-causal cross), its
+    decode step one flash_attention (cross, Sq 1) and one decode_attention
+    (self) per layer; llava one flash_attention per layer of a prefill and
+    one decode_attention per layer of a step."""
+    L = cfg.n_layers
+    if cfg.family == "encdec":
+        return {"prefill": {"flash_attention": cfg.enc_layers + 2 * L},
+                "decode": {"flash_attention": L, "decode_attention": L}}
+    return {"prefill": {"flash_attention": L}, "decode": {"decode_attention": L}}
+
+
+def run_encdec_vlm(torch, counters, arch: str) -> dict:
+    """``arch`` (whisper-large-v3 or llava-next-mistral-7b) at full width
+    and depth, seeded random bf16 weights drawn on the card, through the
+    model facade: greedy generation of GEN_NEW tokens after GEN_PROMPT
+    text tokens through the port's ``serving.engine.generate`` (a prefill
+    and a decode-step graph per batch size, held by ``CapturedProgram``),
+    with whisper's audio (B, 1,500, 1,280) or llava's patches (B, 2,880,
+    4,096) made on the card before any timed window, at batch 8 and 3
+    (``GEN_RUNS`` generations each). ``GenerateTimer`` times every replay
+    by CUDA events, traces the first replay of each graph and profiles
+    the fourth of each kind. Each prefill graph must have recorded exactly
+    ``path_launches``' prefill launches and each decode graph its decode
+    launches, and a traced replay must run what its capture recorded; the
+    wrappers must have launched exactly those of the warm-ups and of the
+    eager loops; kv_len after prefill is P + T (llava's P 2,880); the
+    graphs' tokens equal the eager loop's for both batches, and every
+    logit is finite."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.graphs import CapturedProgram
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import generate
+    cfg = get_config(arch)
+    path = path_launches(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    params = model.init_params(0)
+    n_params = tree_sum(params, lambda t: t.numel())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    rng = np.random.default_rng(13)
+    inputs = {B: {"tokens": rng.integers(2, cfg.vocab_size, (B, GEN_PROMPT)).astype(np.int32),
+                  **family_inputs(torch, cfg, B, gen)} for B in GEN_RUNS}
+    torch.cuda.synchronize()
+    P = cfg.n_patches
+    max_len = P + GEN_PROMPT + GEN_NEW
+    programs = CapturedProgram(model.device)
+    tokens = {}
+    with GenerateTimer(torch) as timer:
+        for B, n in GEN_RUNS.items():
+            for _ in range(n):
+                state = generate(programs, model, params, inputs[B], max_len, GEN_NEW,
+                                 finite=True)
+                require(bool(state["finite"]), f"{arch}: B={B} non-finite logits in a "
+                        f"graph replay")
+                kv0 = state["start"].tolist()
+                require(kv0 == [P + GEN_PROMPT] * B, f"{arch}: kv_len after prefill "
+                        f"{kv0}, not {P + GEN_PROMPT}")
+                tokens[B] = state["out"].cpu().numpy()
+        torch.cuda.synchronize()
+    for B in GEN_RUNS:
+        for kind in ("prefill", "decode"):
+            got = programs.recorded((kind, B))
+            got = {w.__name__: n for w, n in got.items()}
+            require(got == path[kind], f"{arch}: a {kind} graph at B={B} recorded "
+                    f"{got}, not {path[kind]}")
+    for key in programs.keys():
+        require(key in timer.traced, f"{arch}: graph {key} never replayed")
+        traced, recorded = timer.traced[key]
+        require(traced == recorded, f"{arch}: a replay of graph {key} ran {traced} "
+                f"launches of the port's kernels, its capture recorded {recorded}")
+    for B in GEN_RUNS:
+        batch = dict(inputs[B])
+        want = eager_tokens(torch, model, params, batch.pop("tokens"), GEN_NEW, batch)
+        require(np.array_equal(tokens[B], want), f"{arch}: B={B} graph tokens "
+                f"{tokens[B].tolist()} differ from the eager loop's {want.tolist()}")
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    # wrapper calls: per batch size one warm-up and one eager run of each
+    # program kind, the eager loop's decode GEN_NEW - 1 times
+    n_pre, n_dec = 2 * len(GEN_RUNS), (1 + GEN_NEW - 1) * len(GEN_RUNS)
+    want = {}
+    for kind, n in (("prefill", n_pre), ("decode", n_dec)):
+        for k, per in path[kind].items():
+            want[k] = want.get(k, 0) + per * n
+    require(counts == want, f"{arch}: launches at wrapper calls {counts}, not {want}")
+    replayed = recorded_launches(programs, programs.replays)
+    replayed = {k: n for k, n in replayed.items() if n}
+    reps = {k: graph_count(programs.replays, k) for k in ("prefill", "decode")}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pre8, pre3 = timer.ms("prefill", 8), timer.ms("prefill", 3)
+    dec8, dec3 = timer.ms("decode", 8), timer.ms("decode", 3)
+    step = decode_step_bound(params, cfg, 8, prompt_len=P + GEN_PROMPT, new_tokens=GEN_NEW)
+    numbers = dict(
+        params_b=n_params / 1e9, prefill_ms_b8=pre8, prefill_ms_b3=pre3,
+        decode_ms_p50_b8=statistics.median(dec8),
+        decode_ms_p99_b8=float(np.percentile(dec8, 99)),
+        decode_ms_p50_b3=statistics.median(dec3), peak_gib=peak,
+        launches=counts, replay_launches=replayed, **step)
+    log_card(f"encdec_vlm {arch}: full width and depth, {n_params / 1e9:.3f} B parameters "
+             f"({cfg.enc_layers} encoder + {cfg.n_layers} decoder layers)"
+             if cfg.family == "encdec" else
+             f"encdec_vlm {arch}: full width and depth, {n_params / 1e9:.3f} B parameters, "
+             f"{cfg.n_layers} layers, {P} patches + {GEN_PROMPT} tokens: kv_len after "
+             f"prefill {P + GEN_PROMPT}")
+    log_card(f"encdec_vlm {arch}: prefill replay ms at B 8 {[round(t, 3) for t in pre8]}, "
+             f"at B 3 {[round(t, 3) for t in pre3]}; decode replay ms a token at B 8 p50 "
+             f"{numbers['decode_ms_p50_b8']:.4f} p99 {numbers['decode_ms_p99_b8']:.4f} "
+             f"({len(dec8)} timed), at B 3 p50 {numbers['decode_ms_p50_b3']:.4f} "
+             f"({len(dec3)} timed); "
+             f"peak device memory {peak:.2f} GiB (graphs included)")
+    log_card(f"encdec_vlm {arch}: decode step bound at B 8 {step['decode_bound_ms']:.4f} ms, "
+             f"{step['decode_bound_by']} ({step['decode_bytes'] / 1e9:.4f} GB: bf16 decoder "
+             f"layers, bf16 head, {step['decode_state']}"
+             + (f", the cross K/V {step['decode_cross_bytes'] / 1e9:.4f} GB; the cross "
+                f"wk / wv and the encoder not read" if step["decode_cross_bytes"] else "")
+             + f"); the fp32 head copy the port reads instead adds "
+             f"{step['fp32_head_extra_ms']:.4f} ms; decode p50 / bound "
+             f"{numbers['decode_ms_p50_b8'] / step['decode_bound_ms']:.2f}")
+    for kind, text in timer.profiles.items():
+        log(f"encdec_vlm {arch}: profile of one {kind} replay: {text}")
+    log(f"encdec_vlm {arch}: each prefill graph recorded {path['prefill']}, each decode "
+        f"graph {path['decode']}; graph replays {reps}, their launches {replayed} (a traced "
+        f"replay of each of the {len(timer.traced)} graphs ran exactly its recorded "
+        f"launches); launches at wrapper calls {counts} (warm-ups and eager loops); graph tokens "
+        f"equal the eager loop's for B = 8 and B = 3 ({GEN_NEW} tokens each), every logit "
+        f"finite; {time.perf_counter() - t0:.1f} s")
+    del timer, programs, model, params, inputs, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return numbers
+
+
 # ---------------------------------------------------------------- MoE FFN
-MOE_REL = 2.0 ** -6            # routed (bf16 products) against dense exact (fp32):
+MOE_REL = 2.0 ** -6           # routed (bf16 products) against dense exact (fp32):
                                # of the largest |y|, four bf16 ulps there (the card
                                # rounds g, u, the hidden and each expert's output)
 MOE_SHAPES = (("granite_prefill", "granite-moe-3b-a800m", 512),
@@ -2745,7 +3025,8 @@ SERVE_KERNELS = {"flash_attention": "llama3.2-3b", "decode_attention": "llama3.2
 KERNEL_WRAPPERS = {"scatter_rows": ("scatter_flush", "scatter_rows")}
 
 
-PHASES = ("build", "kernels", "index", "main", "parity", "shard", "sim", "serve")
+PHASES = ("build", "kernels", "index", "main", "parity", "shard", "sim", "serve",
+          "encdec_vlm")
 
 
 def main(argv: list[str]) -> int:
@@ -2831,6 +3112,14 @@ def main(argv: list[str]) -> int:
                 check_model(torch, arch)
             check_hybrid(torch, counters)
             log(f"phase serve: {time.perf_counter() - t0:.1f} s")
+        if "encdec_vlm" in phases:
+            t0 = time.perf_counter()
+            encdec = {}
+            for arch in ENCDEC_VLM_ARCHS:        # one model on the card at a time
+                encdec[arch] = run_encdec_vlm(torch, counters, arch)
+            for arch in ENCDEC_VLM_ARCHS:
+                check_model(torch, arch)
+            log_card(f"phase encdec_vlm: {time.perf_counter() - t0:.1f} s")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2856,6 +3145,11 @@ def main(argv: list[str]) -> int:
             row["serve"] = {a: {"launches": out["launches"][name],
                                 "replay_launches": out["replay_launches"][name]}
                             for a, out in served.items() if out["launches"][name]}
+        if any(name in out["launches"] for out in encdec.values()):
+            # whisper's and llava's runs through the model facade
+            row["encdec_vlm"] = {a: {"launches": out["launches"].get(name, 0),
+                                     "replay_launches": out["replay_launches"].get(name, 0)}
+                                 for a, out in encdec.items()}
         if name in sharded:       # the cache kernels on the sharded and simulator paths
             row["shard"], row["sim"] = sharded[name], simulated[name]
         variants = {"_".join(k[1:]): {f: v[f] for f in fields if f in v}

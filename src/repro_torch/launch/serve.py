@@ -15,8 +15,10 @@ the PyTorch model for misses (a dense model such as llama3.2-3b through
 the attention kernels on the card, an ssm model such as falcon-mamba-7b
 through the selective-scan kernel, an MoE model such as
 granite-moe-3b-a800m through grouped expert products, a hybrid one such as
-jamba through both mixers; the encoder-decoder (whisper) and VLM (llava)
-architectures raise ``NotImplementedError`` until their slice is ported)
+jamba through both mixers; the engine passes prompt tokens alone, so the
+encoder-decoder (whisper) and VLM (llava) architectures, whose prefill also
+needs audio or patches, fail at the first miss batch with a ``ValueError``
+naming that input, as the reference's CLI fails with a ``KeyError``)
 → cache insertion, with adaptive load-based policy adjustment. ``--cache none``
 serves everything from the model (the uncached baseline). Weights are
 random, drawn on the device from ``seed`` with a ``torch.Generator``;

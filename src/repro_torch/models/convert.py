@@ -6,7 +6,10 @@ numpy array) and builds the port's parameters from it: the same values,
 with the reference's group-stacked layers ("stack" → "sub<i>" → leaves of
 shape (n_groups, ...)) unstacked into one dict per layer, in layer order
 (group g's sub i is layer g·n_sub + i: jamba's one group of 8 sublayers
-gives layers 0–7). Every leaf is carried as it is, an MoE layer's
+gives layers 0–7). Whisper's ``enc`` subtree comes across the same way:
+``proj``, ``final_norm`` and its group-stacked encoder layers, one dict
+per layer; each decoder layer's ``ln_cross`` and ``cross`` ride with its
+other leaves. Every leaf is carried as it is, an MoE layer's
 ``router`` (d, E) fp32 and ``w_gate`` / ``w_up`` (E, d, ffe) and
 ``w_down`` (E, ffe, d) too: the port's grouped product takes the experts
 in that order (``models/moe.py``). Tests and the
@@ -20,8 +23,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-
-from repro_torch.models import transformer as tf
 
 
 def to_tensor(a, device) -> torch.Tensor:
@@ -37,19 +38,29 @@ def _tree(x, fn):
     return {k: _tree(v, fn) for k, v in x.items()} if isinstance(x, dict) else fn(x)
 
 
-def params_from_reference(np_params: dict, cfg, device) -> dict:
-    """The reference's parameter tree (numpy leaves) -> the port's params
-    on ``device``: embed, head, final_norm, and one dict per layer."""
-    tf.check_ported(cfg)
-    groups = np_params["stack"]
+def _layers(groups: dict, n_layers: int, device) -> list[dict]:
+    """A group-stacked stack ("sub<i>" -> leaves (n_groups, ...)) as one
+    dict per layer, in layer order."""
     n_sub = len(groups)
     n_groups = np.asarray(groups["sub0"]["ln_mix"]).shape[0]
-    if n_sub * n_groups != cfg.n_layers:
+    if n_sub * n_groups != n_layers:
         raise ValueError(f"params_from_reference: {n_groups} groups of {n_sub} "
-                         f"sublayers do not make {cfg.n_layers} layers")
-    layers = [_tree(groups[f"sub{i}"], lambda a, g=g: to_tensor(np.asarray(a)[g], device))
-              for g in range(n_groups) for i in range(n_sub)]
-    return {"embed": to_tensor(np_params["embed"], device),
-            "head": to_tensor(np_params["head"], device),
-            "final_norm": to_tensor(np_params["final_norm"], device),
-            "layers": layers}
+                         f"sublayers do not make {n_layers} layers")
+    return [_tree(groups[f"sub{i}"], lambda a, g=g: to_tensor(np.asarray(a)[g], device))
+            for g in range(n_groups) for i in range(n_sub)]
+
+
+def params_from_reference(np_params: dict, cfg, device) -> dict:
+    """The reference's parameter tree (numpy leaves) -> the port's params
+    on ``device``: embed, head, final_norm, one dict per layer, and for
+    whisper ``enc`` {proj, layers, final_norm}."""
+    params = {"embed": to_tensor(np_params["embed"], device),
+              "head": to_tensor(np_params["head"], device),
+              "final_norm": to_tensor(np_params["final_norm"], device),
+              "layers": _layers(np_params["stack"], cfg.n_layers, device)}
+    if "enc" in np_params:
+        enc = np_params["enc"]
+        params["enc"] = {"proj": to_tensor(enc["proj"], device),
+                         "layers": _layers(enc["stack"], cfg.enc_layers, device),
+                         "final_norm": to_tensor(enc["final_norm"], device)}
+    return params

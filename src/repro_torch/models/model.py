@@ -1,5 +1,4 @@
-"""Model facade for the dense, moe, ssm and hybrid families: init, cache,
-prefill, decode step.
+"""Model facade for every family: init, cache, prefill, decode step.
 
 The counterpart of ``repro.models.model`` for serving. Vocab is padded to
 a multiple of 2048 as in the reference, and padded rows score -1e30.
@@ -15,14 +14,32 @@ An ssm model (falcon-mamba) carries its Mamba state in the cache instead
 of K/V, and a hybrid one (jamba) both; ``kv_len`` is still returned and
 advanced, as the reference does, so the serving loop is the same for
 every family. An MoE layer's load-balancing loss is discarded, as the
-reference's prefill and decode discard it. Training (``loss_fn``),
-whisper's encoder and the VLM's patch prefix are not ported: ``Model``
-raises ``NotImplementedError`` for the encdec and vlm families.
+reference's prefill and decode discard it. Training (``loss_fn``) is not
+ported.
+
+Whisper (encdec): prefill runs the encoder over ``batch["audio"]`` (B,
+enc_ctx, enc_dim), the frontend's frame embeddings: a projection, the
+sinusoid at every frame, ``enc_layers`` non-causal attention layers that
+are ALSO roped (the reference's encoder config is "dense", so its
+attention takes RoPE at ``rope_theta``), the final norm. Each decoder
+layer's cross K/V of that output is written into the cache (``ck``,
+``cv``), which every decode step reads; a decoder token gets the sinusoid
+at its position (in decode, ``kv_len``) and no RoPE; its vocab of 51,866
+pads to 53,248 (an fp32 head copy of 0.27 GB at d 1,280), and padded rows
+score -1e30, so a greedy argmax never picks them. Llava (vlm): prefill
+prepends ``batch["patches"]`` (B, P, d), cast to the model dtype, to the
+embedded text, positions run over all P + T, and ``kv_len`` comes back as
+P + T; the cache is sized ``max(max_len, P + T)``, so a caller that wants
+``new`` decode steps passes ``max_len = P + T + new``. A batch without its
+family's input raises ``ValueError`` naming it (the reference raises
+``KeyError``). A decode step raises ``ValueError`` where ``kv_len`` has
+reached the cache's length, where the reference's ``.at[].set`` drops the
+new K/V silently.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import torch
 
@@ -38,6 +55,21 @@ def padded_vocab(v: int) -> int:
     return ((v + VOCAB_PAD_UNIT - 1) // VOCAB_PAD_UNIT) * VOCAB_PAD_UNIT
 
 
+def _sinusoid_at(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Absolute sinusoidal embeddings at ``positions`` (whisper), fp32:
+    (..., dim), sines then cosines."""
+    half = dim // 2
+    i = torch.arange(half, dtype=torch.float32, device=positions.device)
+    inv = torch.pow(10000.0, -i / half)
+    ang = positions[..., None].to(torch.float32) * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# Each family's input beside the tokens, with the shape prefill takes.
+EXTRA_INPUT = {"encdec": ("audio", "(B, enc_ctx, enc_dim) frame embeddings"),
+               "vlm": ("patches", "(B, n_patches, d_model) patch embeddings")}
+
+
 @dataclass
 class Model:
     cfg: ArchConfig
@@ -46,11 +78,6 @@ class Model:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        if self.cfg.family in ("encdec", "vlm"):
-            raise NotImplementedError(
-                f"{self.cfg.name}: the {self.cfg.family} family (encoder / patch "
-                f"prefix) is not ported yet (ROADMAP queue 1)")
-        tf.check_ported(self.cfg)
 
     # ------------------------------------------------------------- params
     def init_params(self, seed: int | torch.Generator = 0) -> dict:
@@ -64,10 +91,24 @@ class Model:
         dt = dtype_of(cfg)
         vp = padded_vocab(cfg.vocab_size)
         scale = cfg.d_model ** -0.5
-        return {"embed": normal(gen, (vp, cfg.d_model), dt, scale, dev),
-                "head": normal(gen, (vp, cfg.d_model), dt, scale, dev),
-                "final_norm": torch.zeros(cfg.d_model, dtype=torch.float32, device=dev),
-                "layers": tf.init_stack(gen, cfg, dev)}
+        params = {"embed": normal(gen, (vp, cfg.d_model), dt, scale, dev),
+                  "head": normal(gen, (vp, cfg.d_model), dt, scale, dev),
+                  "final_norm": torch.zeros(cfg.d_model, dtype=torch.float32, device=dev),
+                  "layers": tf.init_stack(gen, cfg, dev)}
+        if cfg.family == "encdec":
+            params["enc"] = {
+                "proj": normal(gen, (cfg.enc_dim, cfg.d_model), dt, cfg.enc_dim ** -0.5,
+                               dev),
+                "layers": tf.init_stack(gen, self._enc_cfg(), dev),
+                "final_norm": torch.zeros(cfg.d_model, dtype=torch.float32, device=dev)}
+        return params
+
+    def _enc_cfg(self) -> ArchConfig:
+        """Whisper's encoder stack: dense attention layers (roped, by the
+        family), run non-causal by ``_encode``."""
+        return replace(self.cfg, family="dense", n_layers=self.cfg.enc_layers,
+                       n_experts=0, moe_top_k=0, sliding_window=None,
+                       local_global_alternating=False)
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -78,6 +119,44 @@ class Model:
         if self.cfg.final_softcap is not None:   # gemma-style embed scaling
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
         return x
+
+    def _encode(self, params, audio: torch.Tensor) -> torch.Tensor:
+        """Whisper's encoder on precomputed frame embeddings (B, enc_ctx,
+        enc_dim) -> (B, enc_ctx, d) in the model dtype."""
+        cfg, dt = self.cfg, dtype_of(self.cfg)
+        x = audio.to(self.device, dt) @ params["enc"]["proj"].to(dt)
+        pos = torch.arange(x.shape[1], device=self.device)
+        x = x + _sinusoid_at(pos, cfg.d_model).to(x.dtype)
+        enc_cfg = self._enc_cfg()
+        pattern = [tf.SubLayerSpec(kind="attn", mlp="dense", causal=False)] * enc_cfg.n_layers
+        x = tf.stack_apply(x, params["enc"]["layers"], enc_cfg, mode="train",
+                           positions=pos, pattern=pattern)
+        return rms_norm(x, params["enc"]["final_norm"], cfg.norm_eps)
+
+    def _cross_kv(self, params, enc_out: torch.Tensor, cache: dict) -> None:
+        """Each decoder layer's cross K/V of the encoder output, written in
+        place into the cache's ``ck`` / ``cv`` (L, B, enc_ctx, Hkv, dh)."""
+        B, C, d = enc_out.shape
+        for layer, ck, cv in zip(params["layers"], cache["ck"], cache["cv"]):
+            for w, out in ((layer["cross"]["wk"], ck), (layer["cross"]["wv"], cv)):
+                out.copy_((enc_out @ w.to(enc_out.dtype).reshape(d, -1)).view(out.shape))
+
+    def _dec_inputs(self, params, tokens: torch.Tensor, positions: torch.Tensor
+                    ) -> torch.Tensor:
+        x = self._embed_tokens(params, tokens)
+        if self.cfg.family == "encdec":
+            x = x + _sinusoid_at(positions, self.cfg.d_model).to(x.dtype)
+        return x
+
+    def _extra_input(self, batch: dict) -> torch.Tensor | None:
+        """The family's input beside the tokens (audio, patches), or None."""
+        if self.cfg.family not in EXTRA_INPUT:
+            return None
+        key, what = EXTRA_INPUT[self.cfg.family]
+        if key not in batch:
+            raise ValueError(f"{self.cfg.name}: the {self.cfg.family} family's prefill "
+                             f"needs batch[{key!r}], {what}")
+        return batch[key]
 
     def _head(self, params) -> torch.Tensor:
         head = params["head"]
@@ -95,15 +174,24 @@ class Model:
 
     @torch.inference_mode()
     def prefill(self, params, batch: dict, max_len: int):
-        """tokens (B, S) -> (last-token logits (B, Vp) fp32, cache, kv_len
-        (B,) int32). Chunked at ``cfg.prefill_chunk`` when it divides S (a
-        Mamba layer's state carries from chunk to chunk)."""
+        """tokens (B, S) [+ audio (encdec) or patches (vlm)] -> (last-token
+        logits (B, Vp) fp32, cache, kv_len (B,) int32). Chunked at
+        ``cfg.prefill_chunk`` when it divides S (a Mamba layer's state
+        carries from chunk to chunk)."""
         cfg = self.cfg
+        extra = self._extra_input(batch)
         tokens = batch["tokens"].to(self.device)
         B, S = tokens.shape
         positions = torch.arange(S, device=self.device)
-        x = self._embed_tokens(params, tokens)
+        x = self._dec_inputs(params, tokens, positions)
+        if cfg.family == "vlm":
+            x = torch.cat([extra.to(self.device, x.dtype), x], dim=1)
+            S = x.shape[1]
+            positions = torch.arange(S, device=self.device)
+        # the VLM's prefix counts toward the context: the cache grows to hold it
         cache = self.init_cache(B, max(max_len, S))
+        if cfg.family == "encdec":
+            self._cross_kv(params, self._encode(params, extra), cache)
         chunk = cfg.prefill_chunk or S
         if S % chunk:
             chunk = S
@@ -121,8 +209,28 @@ class Model:
         """One token per sequence: tokens (B,), kv_len (B,) int32. Writes
         the cache in place; returns (logits (B, Vp), cache, kv_len + 1)."""
         cfg = self.cfg
-        x = self._embed_tokens(params, tokens[:, None])
+        _check_room(cache, kv_len)
+        x = self._dec_inputs(params, tokens[:, None], kv_len[:, None])
         x = tf.stack_apply(x, params["layers"], cfg, mode="decode",
                            positions=kv_len[:, None], cache=cache, kv_len=kv_len)
         x_last = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
         return self._logits_last(params, x_last), cache, kv_len + 1
+
+
+def _check_room(cache: dict, kv_len: torch.Tensor) -> None:
+    """Refuse a decode step where a sequence's ``kv_len`` has reached the
+    KV cache's length: its new K/V would land past the end. On the CPU a
+    ValueError. On the card a device-side assertion, with no host read, so
+    it holds in an eager step, a graph's warm-up and every replay of a
+    captured step alike; a failed one ends the CUDA context."""
+    if "k" not in cache:
+        return
+    room = cache["k"].shape[2]
+    if kv_len.is_cuda:
+        torch._assert_async((kv_len < room).all(),
+                            "decode_step: kv_len has reached the cache length")
+        return
+    longest = int(kv_len.max())
+    if longest >= room:
+        raise ValueError(f"decode_step: kv_len {longest} has reached the cache length "
+                         f"{room}; prefill with a larger max_len")

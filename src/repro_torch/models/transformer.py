@@ -1,27 +1,33 @@
-"""The decoder stack for the dense, moe, ssm and hybrid families.
+"""The decoder stack of every family, and whisper's encoder stack.
 
 The counterpart of ``repro.models.transformer``. The reference scans
 group-stacked parameters with ``lax.scan``; PyTorch runs eagerly, so the
 port keeps one parameter dict per layer and loops over them. A sublayer is
-a mixer, attention or a Mamba block, then its FFN: SwiGLU (dense), a
-mixture of experts (``models/moe.py``: granite-moe, kimi-k2, jamba's odd
-layers) or none (ssm, falcon-mamba). A hybrid stack (jamba) interleaves
-attention and Mamba layers, each with a dense or MoE FFN.
+a mixer, attention or a Mamba block, then whisper's cross-attention (an
+encdec decoder layer only), then its FFN: SwiGLU (dense), a mixture of
+experts (``models/moe.py``: granite-moe, kimi-k2, jamba's odd layers) or
+none (ssm, falcon-mamba). A hybrid stack (jamba) interleaves attention and
+Mamba layers, each with a dense or MoE FFN. ``stack_apply`` takes a
+caller's layer pattern, as the reference's takes ``group=``: whisper's
+encoder runs the dense pattern with ``causal=False``.
 
 The cache keeps one stacked tensor per kind of state, indexed by the
 layer's ordinal among the layers of its kind (a hybrid stack holds both
 side by side): ``k`` and ``v`` (L_attn, B, S, Hkv, dh) for attention
 layers, the reference's per-layer (B, S, Hkv, dh) layout stacked; ``h`` (L_mamba, B,
-d_inner, N) fp32 and ``conv`` (L_mamba, B, K-1, d_inner) for Mamba layers.
-Prefill and decode write them IN PLACE where the reference builds new
-arrays (``dynamic_update_slice``, ``.at[].set``): the decode kernel reads a
-layer's KV through a (B, Hkv, S, dh) view, and the scan kernel writes a
-layer's ``h`` over the state it read. Attention takes any query length, so
-the reference's query chunking (``_q_chunked_attend``) has no counterpart.
-
-Cross-attention (whisper's decoder) raises ``NotImplementedError`` and
-names the slice that will port it. The MoE layers' load-balancing loss is
-discarded, as the reference's prefill and decode discard it.
+d_inner, N) fp32 and ``conv`` (L_mamba, B, K-1, d_inner) for Mamba layers;
+``ck`` and ``cv`` (L, B, enc_ctx, Hkv, dh) for an encdec decoder, each
+layer's cross K/V of the encoder output (the reference's ``enc_kv``, which
+it carries beside the cache). Prefill and decode write them IN PLACE where
+the reference builds new arrays (``dynamic_update_slice``, ``.at[].set``):
+the decode kernel reads a layer's KV through a (B, Hkv, S, dh) view, the
+scan kernel writes a layer's ``h`` over the state it read, and a captured
+decode step reads the cross K/V that prefill wrote at the same addresses.
+Attention takes any query length, so the reference's query chunking
+(``_q_chunked_attend``: whisper's 1,500-frame encoder in chunks of 250)
+has no counterpart; it changes rounding only. The MoE layers'
+load-balancing loss is discarded, as the reference's prefill and decode
+discard it.
 """
 
 from __future__ import annotations
@@ -35,12 +41,6 @@ from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (dtype_of, init_attention, init_mamba, init_mlp,
                                        init_moe, rms_norm, swiglu)
-
-# What each unported branch waits for (ROADMAP queue 1).
-NOT_PORTED = {
-    "cross": "encoder-decoder cross-attention (whisper) is not ported yet "
-             "(ROADMAP queue 1)",
-}
 
 
 @dataclass(frozen=True)
@@ -59,15 +59,6 @@ def layer_pattern(cfg) -> list[SubLayerSpec]:
             for i in range(cfg.n_layers)]
 
 
-def check_ported(cfg) -> list[SubLayerSpec]:
-    """The layer pattern, or NotImplementedError for a branch not ported."""
-    pattern = layer_pattern(cfg)
-    for spec in pattern:
-        if spec.cross:
-            raise NotImplementedError(f"{cfg.name}: {NOT_PORTED['cross']}")
-    return pattern
-
-
 # ---------------------------------------------------------------------------
 # Parameters and caches.
 # ---------------------------------------------------------------------------
@@ -76,6 +67,9 @@ def init_sublayer(gen, cfg, spec: SubLayerSpec, device) -> dict:
     d = cfg.d_model
     p = {"ln_mix": torch.zeros(d, dtype=torch.float32, device=device),
          "mix": (init_attention if spec.kind == "attn" else init_mamba)(gen, cfg, device)}
+    if spec.cross:
+        p["ln_cross"] = torch.zeros(d, dtype=torch.float32, device=device)
+        p["cross"] = init_attention(gen, cfg, device)
     if spec.mlp == "dense":
         p["ln_mlp"] = torch.zeros(d, dtype=torch.float32, device=device)
         p["mlp"] = init_mlp(gen, d, cfg.d_ff, dtype_of(cfg), device)
@@ -86,7 +80,7 @@ def init_sublayer(gen, cfg, spec: SubLayerSpec, device) -> dict:
 
 
 def init_stack(gen, cfg, device) -> list[dict]:
-    return [init_sublayer(gen, cfg, spec, device) for spec in check_ported(cfg)]
+    return [init_sublayer(gen, cfg, spec, device) for spec in layer_pattern(cfg)]
 
 
 def cache_slots(pattern: list[SubLayerSpec]) -> list[int]:
@@ -98,7 +92,9 @@ def cache_slots(pattern: list[SubLayerSpec]) -> list[int]:
 
 def init_cache(cfg, batch: int, max_len: int, device, dtype=None) -> dict:
     """Preallocated zero cache: {"k", "v"} (L_attn, B, S, Hkv, dh) for the
-    attention layers, {"h", "conv"} (L_mamba, ...) for the Mamba layers;
+    attention layers, {"h", "conv"} (L_mamba, ...) for the Mamba layers,
+    {"ck", "cv"} (L, B, enc_ctx, Hkv, dh) for the cross K/V of an encdec
+    decoder (every one of its layers is attention with cross-attention);
     ``kv_len`` tracks which KV positions are valid."""
     kinds = cfg.layer_kinds()
     dt = dtype or dtype_of(cfg)
@@ -110,6 +106,10 @@ def init_cache(cfg, batch: int, max_len: int, device, dtype=None) -> dict:
     if "mamba" in kinds:
         cache.update(mam.init_mamba_state(cfg, batch, dt, device,
                                           lead=(kinds.count("mamba"),)))
+    if cfg.family == "encdec":
+        shape = (cfg.n_layers, batch, cfg.enc_ctx, cfg.n_kv_heads, cfg.head_dim)
+        cache["ck"] = torch.zeros(shape, dtype=dt, device=device)
+        cache["cv"] = torch.zeros(shape, dtype=dt, device=device)
     return cache
 
 
@@ -122,6 +122,9 @@ def attn_sublayer(x, sp, cfg, spec: SubLayerSpec, *, mode: str, positions,
     """x (B, S, d) -> x + attention. ``cache_k``/``cache_v`` are this
     layer's (B, S_max, Hkv, dh) cache, written in place (prefill, decode)."""
     h = rms_norm(x, sp["ln_mix"], cfg.norm_eps)
+    # By family, as the reference: whisper's decoder (encdec) is not roped,
+    # but its encoder runs under a "dense" config (``Model._enc_cfg``) and
+    # so takes RoPE at cfg.rope_theta on top of its additive sinusoid.
     theta = cfg.rope_theta if cfg.family != "encdec" else None
     q, k, v = attn.qkv_project(h, sp["mix"], positions, theta)
 
@@ -150,6 +153,21 @@ def attn_sublayer(x, sp, cfg, spec: SubLayerSpec, *, mode: str, positions,
     return x + attn.out_project(out, sp["mix"]).to(x.dtype)
 
 
+def cross_sublayer(x, sp, cfg, enc_k, enc_v):
+    """Whisper's decoder cross-attention: x (B, S, d) -> x + attention of
+    its queries over the encoder's K/V (B, enc_ctx, Hkv, dh), written by
+    prefill. Non-causal, no window, no softcap, no RoPE. As in the
+    reference, prefill and decode both take ``attend_prefill``: a decode
+    step's cross-attention is a flash_attention call with Sq = 1 (rounding
+    P to bf16 as the reference's prefill path does), not decode_attention."""
+    h = rms_norm(x, sp["ln_cross"], cfg.norm_eps)
+    B, S, d = h.shape
+    wq = sp["cross"]["wq"]
+    q = (h @ wq.to(h.dtype).reshape(d, -1)).view(B, S, wq.shape[1], wq.shape[2])
+    out = attn.attend_prefill(q, enc_k, enc_v, causal=False)
+    return x + attn.out_project(out, sp["cross"]).to(x.dtype)
+
+
 def mamba_sublayer(x, sp, cfg, *, state=None, fresh: bool = False):
     """x (B, L, d) -> x + Mamba block. ``state`` is this layer's {"h",
     "conv"} cache, read (unless ``fresh``: a prefill's first chunk starts
@@ -162,9 +180,11 @@ def mamba_sublayer(x, sp, cfg, *, state=None, fresh: bool = False):
 
 def sublayer_apply(x, sp, cfg, spec: SubLayerSpec, *, mode: str, positions,
                    cache=None, slot: int = 0, kv_len=None, kv_offset: int = 0):
-    """One layer: its mixer, then its MLP if it has one. ``cache`` is the
-    whole stacked cache and ``slot`` the layer's index into its kind's
-    tensors (``cache_slots``)."""
+    """One layer: its mixer, its cross-attention if it has one, then its
+    MLP if it has one. ``cache`` is the whole stacked cache and ``slot``
+    the layer's index into its kind's tensors (``cache_slots``; an encdec
+    decoder layer's index into ``ck``/``cv`` too, every layer of it being
+    attention)."""
     if spec.kind == "attn":
         ck = cv = None
         if cache is not None:
@@ -177,6 +197,8 @@ def sublayer_apply(x, sp, cfg, spec: SubLayerSpec, *, mode: str, positions,
             state = {"h": cache["h"][slot], "conv": cache["conv"][slot]}
         x = mamba_sublayer(x, sp, cfg, state=state,
                            fresh=mode == "prefill" and kv_offset == 0)
+    if spec.cross and cache is not None:
+        x = cross_sublayer(x, sp, cfg, cache["ck"][slot], cache["cv"][slot])
     if spec.mlp == "dense":
         h = rms_norm(x, sp["ln_mlp"], cfg.norm_eps)
         x = x + swiglu(h, sp["mlp"]["w_gate"], sp["mlp"]["w_up"],
@@ -189,10 +211,13 @@ def sublayer_apply(x, sp, cfg, spec: SubLayerSpec, *, mode: str, positions,
 
 
 def stack_apply(x, layers: list[dict], cfg, *, mode: str, positions, cache=None,
-                kv_len=None, kv_offset: int = 0):
+                kv_len=None, kv_offset: int = 0, pattern=None):
     """Run every layer over x. ``cache`` (``init_cache``'s dict) is updated
-    in place in prefill and decode modes; train mode takes none."""
-    pattern = check_ported(cfg)
+    in place in prefill and decode modes; train mode takes none.
+    ``pattern`` (default ``layer_pattern(cfg)``) gives each layer's spec:
+    whisper's encoder passes non-causal attention layers."""
+    if pattern is None:
+        pattern = layer_pattern(cfg)
     for sp, spec, slot in zip(layers, pattern, cache_slots(pattern)):
         x = sublayer_apply(x, sp, cfg, spec, mode=mode, positions=positions,
                            cache=cache, slot=slot, kv_len=kv_len, kv_offset=kv_offset)

@@ -16,8 +16,10 @@ keeps the shape, and the tokens, of the eager loop):
   the token and ``kv_len + 1`` back over the program's own inputs. It is
   replayed ``max_new - 1`` times.
 
-The tokens come to the host in ONE copy after the last step, never one
-per token. On the CPU the same programs run eagerly. The programs are
+``generate`` runs the two programs; the engine gives it the prompt
+tokens alone, a caller of the model facade may add a whisper's audio or
+a llava's patches. The tokens come to the host in ONE copy after the
+last step, never one per token. On the CPU the same programs run eagerly. The programs are
 the same for every ported family: a dense or MoE model's cache holds
 K/V, an ssm model's (falcon-mamba) its Mamba state, a hybrid one's
 (jamba) both, and all take ``kv_len``. An MoE layer's routing keeps
@@ -109,6 +111,59 @@ class EngineStats:
         self.reasons[reason] = self.reasons.get(reason, 0) + 1
 
 
+@torch.inference_mode()
+def generate(programs: CapturedProgram, model: Model, params, batch: dict,
+             max_len: int, max_new: int, *, finite: bool = False) -> dict:
+    """Greedy generation of ``max_new`` tokens through ``programs``, keyed
+    by batch size B. ``batch["tokens"]`` is the (B, T) int32 numpy prompt,
+    copied into the prefill program's static input; any other entry (a
+    whisper's ``audio``, a llava's ``patches``) is a tensor on the model's
+    device that the prefill graph reads at its address. On the card: a
+    replay of the prefill graph of this B, then ``max_new - 1`` replays of
+    its decode graph, capturing both on first use. Returns the decode
+    program's state: ``out`` (B, max_new) int32 tokens on the device,
+    ``start`` (kv_len after prefill), and with ``finite`` a device flag
+    ANDing whether every step's logits were finite."""
+    V = model.cfg.vocab_size
+    tokens = batch["tokens"]
+    extra = {k: v for k, v in batch.items() if k != "tokens"}
+    B = tokens.shape[0]
+
+    def prefill(toks):
+        logits, cache, kv_len = model.prefill(params, {"tokens": toks, **extra}, max_len)
+        tok = logits[:, :V].argmax(-1).to(torch.int32)
+        out = torch.empty((B, max_new), dtype=torch.int32, device=model.device)
+        out[:, 0] = tok
+        state = {"cache": cache, "kv_len": kv_len, "tok": tok, "out": out,
+                 "start": kv_len.clone()}
+        if finite:
+            state["finite"] = torch.isfinite(logits[:, :V]).all()
+        return state
+
+    def decode():
+        logits, _, kv_len = model.decode_step(params, state["cache"], state["tok"],
+                                              state["kv_len"])
+        tok = logits[:, :V].argmax(-1).to(torch.int32)
+        # kv_len now counts the cached positions: this token is column kv_len - start
+        state["out"].scatter_(1, (kv_len - state["start"]).long()[:, None], tok[:, None])
+        state["tok"].copy_(tok)
+        state["kv_len"].copy_(kv_len)
+        if finite:
+            state["finite"].logical_and_(torch.isfinite(logits[:, :V]).all())
+
+    pre, dec = ("prefill", B), ("decode", B)
+    if not programs.ready(dec):
+        # First use of B on the card: capture prefill, and replay it so
+        # that decode's warm-up and capture read a real state (the replay
+        # of prefill below starts the generation afresh).
+        state = programs.run(pre, prefill, [tokens])
+        programs.capture(dec, decode)
+    state = programs.run(pre, prefill, [tokens])
+    for _ in range(max_new - 1):
+        programs.run(dec, decode)
+    return state
+
+
 class ServingEngine:
     """Queue → embed → cache lookup → model on misses → batched
     write-back. The model runs on its own device (``model.device``)."""
@@ -148,47 +203,16 @@ class ServingEngine:
         self.programs = CapturedProgram(model.device)
         self._program_params = None
 
-    @torch.inference_mode()
     def _generate(self, params, tokens: np.ndarray) -> np.ndarray:
         """Prefill, then greedy decode: (B, S) int32 prompt tokens -> (B,
         new) tokens as numpy, copied to the host once, after the last
-        step. On the card: a replay of the prefill graph of this B, then
-        ``max_new - 1`` replays of its decode graph."""
-        model, V, S = self.model, self.model.cfg.vocab_size, self.prompt_len
-        tokens = np.ascontiguousarray(tokens, np.int32)
-        B = tokens.shape[0]
+        step (``generate``)."""
         if params is not self._program_params:
             self.programs.clear()
             self._program_params = params
-
-        def prefill(toks):
-            logits, cache, kv_len = model.prefill(params, {"tokens": toks},
-                                                  self._max_len)
-            tok = logits[:, :V].argmax(-1).to(torch.int32)
-            out = torch.empty((B, self.max_new), dtype=torch.int32,
-                              device=model.device)
-            out[:, 0] = tok
-            return {"cache": cache, "kv_len": kv_len, "tok": tok, "out": out}
-
-        def decode():
-            logits, _, kv_len = model.decode_step(params, state["cache"],
-                                                  state["tok"], state["kv_len"])
-            tok = logits[:, :V].argmax(-1).to(torch.int32)
-            # kv_len now counts the cached positions: this token is column kv_len - S
-            state["out"].scatter_(1, (kv_len - S).long()[:, None], tok[:, None])
-            state["tok"].copy_(tok)
-            state["kv_len"].copy_(kv_len)
-
-        pre, dec = ("prefill", B), ("decode", B)
-        if not self.programs.ready(dec):
-            # First use of B on the card: capture prefill, and replay it so
-            # that decode's warm-up and capture read a real state (the
-            # replay of prefill below starts the generation afresh).
-            state = self.programs.run(pre, prefill, [tokens])
-            self.programs.capture(dec, decode)
-        state = self.programs.run(pre, prefill, [tokens])
-        for _ in range(self.max_new - 1):
-            self.programs.run(dec, decode)
+        tokens = np.ascontiguousarray(tokens, np.int32)
+        state = generate(self.programs, self.model, params, {"tokens": tokens},
+                         self._max_len, self.max_new)
         return state["out"].cpu().numpy()
 
     def _span(self, stage: str, **attrs):

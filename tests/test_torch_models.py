@@ -1,5 +1,7 @@
 """repro_torch's model (dense family) against the JAX reference, on the CPU.
-The ssm family (falcon-mamba) is held by ``test_torch_mamba.py``.
+The ssm family (falcon-mamba) is held by ``test_torch_mamba.py``, the moe
+and hybrid families by ``test_torch_moe_models.py``, the encdec (whisper)
+and vlm (llava) families by ``test_torch_encdec_vlm.py``.
 
 Configs are field-equal copies. For the reduced dense models the
 reference's random-init parameters are carried across
@@ -46,16 +48,6 @@ def test_configs_field_equal(arch):
     assert port == ref
     assert dataclasses.asdict(get_config(arch).reduced()) == \
         dataclasses.asdict(jget_config(arch).reduced())
-
-
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if jget_config(a).family in ("encdec", "vlm")])
-def test_unported_families_raise(arch):
-    """Encoder-decoder and VLM models raise and name what is missing; they
-    are a later slice (the ssm family is held by ``test_torch_mamba.py``,
-    the moe and hybrid families by ``test_torch_moe_models.py``)."""
-    with pytest.raises(NotImplementedError):
-        Model(get_config(arch).reduced(), device="cpu")
 
 
 def _pair(arch, dtype, seed=0):
