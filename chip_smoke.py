@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive repro_torch's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--phases build,kernels,index,main,parity,shard,sim,serve,encdec_vlm]
+    python3 chip_smoke.py [--phases build,kernels,index,main,parity,shard,sim,serve,encdec_vlm,train]
 
 Run from the root of a checkout: it puts ``src/`` on ``sys.path`` itself,
 builds the CUDA kernels into ``build/repro_torch/`` with ``nvcc`` (sm_90a)
@@ -157,6 +157,35 @@ Phases (any failure exits non-zero and prints no result):
              each at full width and 2 layers, decode against prefill and
              card against CPU within 0.1 (llava's CPU side over 576
              patches).
+10. train  — training through the port's train step (loss, autograd,
+             AdamW in place). First the kernels' autograd Functions:
+             FlashAttentionFn at llama3.2-3b's training attention (B 8,
+             24 / 8 heads, S 512, dh 128, causal) and whisper's encoder
+             (B 8, 20 / 20, 1,500, dh 64, non-causal), MambaScanFn at
+             falcon-mamba-7b's training scan (8 × 128 × 8,192, N 16) and a
+             short one with h0, fp32 and bf16: the forward equal to the
+             kernel's output bit for bit and held against the plain
+             version (as in ``kernels``), gradients against autograd of
+             the plain version (fp32 within 1e-4, bf16 within 2^-6 of each
+             input's largest |grad|) and, fp32, against a central
+             difference of the kernel's own forward (FD_TOL); the forward
+             timed beside its bound, the plain version's (and SDPA's), and
+             forward + backward beside theirs. Then llama3.2-3b and
+             falcon-mamba-7b at full width and 2 layers, card against CPU:
+             loss within 0.1, every gradient leaf within 0.1 of its largest.
+             Then llama3.2-3b at full width and depth (28 layers, remat
+             "dots", fp32 moments, B 8 × S 512 packed batches; one warm-up
+             and 5 timed steps) and falcon-mamba-7b at full width and 8 of
+             its 64 layers (B 8 × S 128, 3 timed steps; 64 layers' bf16
+             weights and grads and fp32 moments, ≈ 87 GB, do not fit the
+             card): step ms, tokens/s, peak memory, the bound, finite
+             losses, changed parameters, and flash_attention / mamba_scan
+             launched twice per layer a step (forward and remat's
+             recompute); one more step split into loss + backward and
+             AdamW, and one profiled. Last, resume on the card (2 layers,
+             full width, int8 moments: 6 steps straight against 3 +
+             restart + 3, losses within 2e-2) and a checkpoint snapshot
+             that survives an in-place change.
 
 The last lines are a ``{"kernels": [...]}`` object (``launches``: those
 made at wrapper calls in the run of the kernel's path; ``replay_launches``:
@@ -165,7 +194,8 @@ replays; for the cache kernels also ``shard`` and ``sim``, the same counts
 in the 4-shard card runs of phase 7, with ``per_shard`` replays (delta
 flushes for scatter_rows), and in the hybrid card runs of phase 8; for
 the model kernels ``serve``, the same two counts in each served model's
-run that launched it, and ``encdec_vlm``, those of phase 9's runs), the
+run that launched it, ``encdec_vlm``, those of phase 9's runs, and
+``train``, those of phase 10's timed steps), the
 card's name and power limit from nvidia-smi, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -879,13 +909,16 @@ def attn_close(torch, got, want, atol: float = SCORE_ATOL, what: str = "attentio
     return float(err.max())
 
 
-def flash_close(torch, fa, q, k, v, what: str = "flash_attention", **kw) -> float:
-    """The flash kernel against the fp32 oracle on the same inputs. fp32
-    within SCORE_ATOL; bf16 (tensor cores, probabilities rounded to bf16
-    before P·V) per element within 2^-7·max(|got|, |want|) + 2^-7·(P·|V|)
-    + SCORE_ATOL, P·|V| being the oracle on |V|."""
+def flash_close(torch, fa, q, k, v, what: str = "flash_attention", got=None, **kw
+                ) -> float:
+    """The flash kernel's output (``got``, else a call made here) against
+    the fp32 oracle on the same inputs. fp32 within SCORE_ATOL; bf16
+    (tensor cores, probabilities rounded to bf16 before P·V) per element
+    within 2^-7·max(|got|, |want|) + 2^-7·(P·|V|) + SCORE_ATOL, P·|V|
+    being the oracle on |V|."""
     from repro_torch.kernels.ref import bf16_probability_tol
-    got = fa.flash_attention(q, k, v, **kw)
+    if got is None:
+        got = fa.flash_attention(q, k, v, **kw)
     if q.dtype != torch.bfloat16:
         return attn_close(torch, got, fa.flash_attention_plain(q, k, v, **kw), what=what)
     f32 = [t.float() for t in (q, k, v)]
@@ -898,12 +931,26 @@ def flash_close(torch, fa, q, k, v, what: str = "flash_attention", **kw) -> floa
     return float(err.max())
 
 
-def sdpa_ms(torch, q, k, v, *, causal, mask=None) -> float:
-    """The library yardstick: one scaled_dot_product_attention call on the
+def flash_work(B, Hq, Hkv, Sq, Skv, dh, causal, esz) -> tuple[int, int]:
+    """(bytes, flops) of one flash_attention call: q, k, v read and the
+    output written once; QK^T and PV over the attended pairs (Sq == Skv
+    when causal)."""
+    nbytes = esz * (2 * B * Hq * Sq * dh + 2 * B * Hkv * Skv * dh)
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+    return nbytes, 4 * B * Hq * dh * pairs
+
+
+def sdpa(q, k, v, *, causal, mask=None):
+    """The library yardstick: PyTorch's scaled_dot_product_attention on the
     same inputs (timed here only; the port never calls it)."""
     import torch.nn.functional as F
-    return graph_ms(torch, [lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, is_causal=causal, enable_gqa=True)])
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, is_causal=causal,
+                                          enable_gqa=True)
+
+
+def sdpa_ms(torch, q, k, v, *, causal, mask=None) -> float:
+    """One ``sdpa`` call's device time."""
+    return graph_ms(torch, [lambda: sdpa(q, k, v, causal=causal, mask=mask)])
 
 
 # flash_attention's timed shapes: (label, B, Hq, Hkv, Sq, Skv, dh, causal,
@@ -973,10 +1020,8 @@ def check_attention(torch, dev) -> dict:
                     for _ in range(2 if Sq * Skv < 1024 * 1024 else 1)]
             err = max(flash_close(torch, fa, q, k, v, what=f"flash_attention {label}",
                                   causal=causal) for q, k, v in sets)
-            esz = sets[0][0].element_size()
-            nbytes = esz * (2 * B * Hq * Sq * dh + 2 * B * Hkv * Skv * dh)
-            pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv   # Sq == Skv when causal
-            flops = 4 * B * Hq * dh * pairs
+            nbytes, flops = flash_work(B, Hq, Hkv, Sq, Skv, dh, causal,
+                                       sets[0][0].element_size())
             b = bound(nbytes, flops, BF16_OPS_PER_S if dtype == torch.bfloat16
                       else FP32_OPS_PER_S)
             q, k, v = sets[0]
@@ -1162,6 +1207,16 @@ def scan_inputs(torch, gen, dev, Bt, L, dtype, Dm=DI, N=NS):
     return x, dt, A, B, C, D, h0
 
 
+def scan_work(Bt, L, Dm, N, esz, with_h0) -> tuple[int, int]:
+    """(bytes, operations) of one mamba_scan call: x and y in x's dtype,
+    dt fp32, B and C, A and D read once, h_final written (and h0 read);
+    7 operations per state element and step."""
+    n = Bt * L * Dm
+    nbytes = (n * (2 * esz + 4) + 2 * Bt * L * N * 4 + Dm * (N + 1) * 4
+              + Bt * Dm * N * 4 * (2 if with_h0 else 1))
+    return nbytes, 7 * n * N
+
+
 def scan_check(torch, ms, inputs, start, label: str) -> float:
     """One mamba_scan call against the plain version (y and h within
     SCAN_ATOL); with an initial state, also the same call with h_out
@@ -1216,11 +1271,9 @@ def check_mamba(torch, dev) -> dict:
                     starts = (s[6],) if with_h0 else (None, s[6]) if L < 1024 else (None,)
                     for start in starts:
                         err = max(err, scan_check(torch, ms, s, start, label))
-                esz = sets[0][0].element_size()
                 n = Bt * L * DI
-                nbytes = (n * (2 * esz + 4) + 2 * Bt * L * N * 4 + DI * (N + 1) * 4
-                          + Bt * DI * N * 4 * (2 if with_h0 else 1))
-                b_s = bound(nbytes, 7 * n * N)
+                nbytes, n_ops = scan_work(Bt, L, DI, N, sets[0][0].element_size(), with_h0)
+                b_s = bound(nbytes, n_ops)
                 if with_h0:
                     fns = [lambda s=s: ms.mamba_scan(*s, h_out=s[6]) for s in sets]
                     plain = [lambda s=s: ms.mamba_scan_plain(*s) for s in sets]
@@ -1233,7 +1286,7 @@ def check_mamba(torch, dev) -> dict:
                                 plain_ms=graph_ms(torch, plain,
                                                   replays=5 if L > 1024 else 15),
                                 bound_ms=b_s[0], bound_by=b_s[1], library_ms=None,
-                                sfu_ms=sfu_ms(torch, n * N), bytes=nbytes, ops=7 * n * N)
+                                sfu_ms=sfu_ms(torch, n * N), bytes=nbytes, ops=n_ops)
                 log(f"kernels: mamba_scan {label} Bt={Bt} L={L} Dm={DI} N={N} {dtype} "
                     f"{out[key]}")
                 del sets
@@ -2166,18 +2219,18 @@ EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 LOGIT_TOL = 0.1
 
 
-def kernel_summary(torch, prof, wall_us: float) -> str:
+def kernel_summary(torch, prof, wall_us: float, top: int = 6) -> str:
     """Summed self device time of a torch.profiler window against its host
-    wall time, and the largest kernels by name."""
+    wall time, and the ``top`` largest kernels by name."""
     from torch.autograd import DeviceType
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us == 0:
         return "device time not measured (the profiler saw no device events)"
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    largest = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
     names = ", ".join(f"{e.key[:40]} {e.self_device_time_total / busy_us:.0%}"
-                      for e in top)
+                      for e in largest)
     n_kernels = sum(e.count for e in kernels)
     return (f"{n_kernels} device kernels, busy {busy_us:.1f} us of {wall_us:.1f} us wall "
             f"under the profiler (idle share {1 - busy_us / wall_us:.3f}); top kernels: "
@@ -2413,12 +2466,9 @@ def run_serve(torch, counters, arch: str, n_requests: int) -> dict:
 
 
 def tree_sum(tree, of) -> int:
-    """``of(tensor)`` summed over a parameter tree (dicts, lists, tensors)."""
-    if isinstance(tree, dict):
-        return sum(tree_sum(v, of) for v in tree.values())
-    if isinstance(tree, list):
-        return sum(tree_sum(v, of) for v in tree)
-    return of(tree)
+    """``of(tensor)`` summed over a parameter tree's leaves."""
+    from repro_torch.models.convert import tree_leaves
+    return sum(of(t) for t in tree_leaves(tree))
 
 
 def decode_step_bound(params, cfg, batch: float, *, prompt_len: int,
@@ -2477,15 +2527,6 @@ def decode_step_bound(params, cfg, batch: float, *, prompt_len: int,
     return dict(decode_bound_ms=t, decode_bound_by=by, decode_bytes=nbytes,
                 decode_state=state, decode_experts=note, decode_experts_hit=hit,
                 decode_cross_bytes=cross, fp32_head_extra_ms=extra / HBM_BYTES_PER_S * 1e3)
-
-
-def tree_to(tree, device):
-    """A copy of a parameter tree (dicts, lists, tensors) on ``device``."""
-    if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_to(v, device) for v in tree]
-    return tree.to(device)
 
 
 class Routing:
@@ -2628,12 +2669,13 @@ def check_model(torch, arch: str) -> dict:
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.models.convert import tree_map
     from repro_torch.models.model import Model
     cfg = dataclasses.replace(get_config(arch), n_layers=2,
                               enc_layers=min(get_config(arch).enc_layers, 2))
     card = Model(cfg, device="cuda")
     params = card.init_params(0)
-    host = tree_to(params, "cpu")
+    host = tree_map(lambda t: t.to("cpu"), params)
     cpu = Model(cfg, device="cpu")
     V, B, S = cfg.vocab_size, 2, 64
     gen = torch.Generator().manual_seed(7)
@@ -2991,6 +3033,478 @@ def check_moe_ffn(torch) -> dict:
 
 
 # ---------------------------------------------------------------- main
+# ---------------------------------------------------------------- phase 10
+GRAD_REL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+# The fp32 gradients against the kernel's own forward: each input's
+# directional derivative along t·r against the central difference at
+# t·(1 ± FD_EPS·r), over |grad ⊙ t|. On the CPU with the plain versions
+# this is ≤ 8e-5 at FD_EPS 1e-2; a k/v gradient swapped, or a causal
+# flag lost, gives ≥ 2e-2.
+FD_EPS, FD_TOL = 1e-2, 1e-3
+# FlashAttentionFn's checked shapes: (label, B, Hq, Hkv, S, dh, causal).
+# llama3.2-3b's training attention (B 8, S 512) and whisper's encoder
+# (non-causal, 1,500 frames).
+TRAIN_FLASH = (("llama", 8, HQ, HKV, 512, DH, True),
+               ("whisper_enc", 8, 20, 20, 1500, 64, False))
+# MambaScanFn's: falcon-mamba-7b's training scan (no h0, as training
+# passes none), and a short one with h0 for its gradient.
+TRAIN_SCAN = (("falcon", 8, 128, DI, False), ("h0", 2, 16, 1024, True))
+TRAIN_CPU_REL = 0.1            # card vs CPU, each gradient leaf, of its largest |grad|
+TRAIN_LOSS_TOL = 0.1           # card vs CPU loss (bf16 weights and activations)
+RESUME_TOL = 2e-2              # the reference's tests/test_checkpoint.py tolerance
+OPT_BYTES_PER_PARAM = 22       # AdamW, bf16 p and g, fp32 m and v: read 12, write 10
+# The full-width runs: (arch, layers (None: all), B, S, timed steps).
+TRAIN_RUNS = (("llama3.2-3b", None, 8, 512, 5), ("falcon-mamba-7b", 8, 8, 128, 3))
+
+
+def grad_errs(got, want) -> list:
+    """Each pair's max |got - want| over the largest |want| (fp32)."""
+    return [float((g.float() - w.float()).abs().max() / w.float().abs().max().clamp(min=1e-30))
+            for g, w in zip(got, want)]
+
+
+def event_ms(torch, fn) -> tuple[float, object]:
+    """(device ms of ``fn()`` between CUDA events, its result)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def warm_ms(torch, fn, reps: int = 3) -> float:
+    """Median ``event_ms`` of ``fn()`` over ``reps`` calls after one
+    untimed call (a library's first call loads and picks its kernels)."""
+    fn()
+    return statistics.median(event_ms(torch, fn)[0] for _ in range(reps))
+
+
+def fd_errs(torch, gen, fn, ins, grads, cots) -> list:
+    """Each input's gradient against ``fn`` (the kernel's forward, a
+    tuple of outputs): <grad, t·r> (r ~ N(0, 1)) against the central
+    difference of <cotangents, fn> at t·(1 ± FD_EPS·r), over |grad ⊙ t|
+    (sums in fp64)."""
+    def dot(outs):
+        return sum(float((o.double() * c.double()).sum()) for o, c in zip(outs, cots))
+    errs = []
+    for i, (t, g) in enumerate(zip(ins, grads)):
+        d = t * torch.randn(t.shape, generator=gen, device=t.device)
+        plus, minus = list(ins), list(ins)
+        plus[i], minus[i] = t + FD_EPS * d, t - FD_EPS * d
+        fd = (dot(fn(*plus)) - dot(fn(*minus))) / (2 * FD_EPS)
+        exact = float((g.double() * d.double()).sum())
+        errs.append(abs(fd - exact) / float((g.double() * t.double()).norm()))
+    return errs
+
+
+def check_train_kernels(torch, dev) -> dict:
+    """FlashAttentionFn and MambaScanFn on the card at the training
+    shapes (``TRAIN_FLASH``, ``TRAIN_SCAN``), fp32 and bf16:
+    - the Function's forward equals the kernel wrapper's output bit for
+      bit, and is held against the plain version: attention by
+      ``flash_close``, the scan's y and h_final by ``attn_close`` within
+      SCAN_ATOL (bf16 y: one bf16 step more);
+    - the gradients of a random cotangent equal autograd of the plain
+      version on the same inputs (the backward is that autograd, so this
+      holds the saved inputs and flags), fp32 within 1e-4 and bf16 within
+      2^-6 (four bf16 steps) of the largest |grad| of each input;
+    - fp32: each input's gradient against the kernel's own forward
+      (``fd_errs``, within FD_TOL), which ties the backward to what the
+      card computes.
+    Attention takes the model's (B, S, H, dh) projections through
+    transposed views, as ``attend_prefill`` passes them. Each row is
+    timed as the kernel table is (the kernel's forward, the plain
+    version's and, for attention, SDPA's, CUDA graphs, beside the bound)
+    and forward + backward (CUDA events, the median of 3 after one
+    untimed call) beside the plain version's autograd and SDPA's."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2039)
+    out = {}
+
+    def fwd_bwd(fn, ins, dout):
+        leaves = [t.detach().requires_grad_() for t in ins]
+        y = fn(*leaves)
+        return y, torch.autograd.grad(y, leaves, dout)
+
+    for label, B, Hq, Hkv, S, dh, causal in TRAIN_FLASH:
+        for dtype in (torch.float32, torch.bfloat16):
+            torch.cuda.empty_cache()
+            name = str(dtype)[6:]
+            what = f"train flash {label} {name}"
+            q, k, v = (torch.randn((B, S, h, dh), generator=gen, device=dev).to(dtype)
+                       .transpose(1, 2) for h in (Hq, Hkv, Hkv))
+            dout = torch.randn((B, Hq, S, dh), generator=gen, device=dev).to(dtype)
+            kw = dict(causal=causal, window=None, softcap=None, kv_offset=0)
+            args = (kw["causal"], None, None, 0, None)
+            y, got = fwd_bwd(lambda *t: fa.FlashAttentionFn.apply(*t, *args), (q, k, v), dout)
+            require(torch.equal(y, fa.flash_attention(q, k, v, causal=causal)),
+                    f"{what}: Function forward differs from the kernel's")
+            err = flash_close(torch, fa, q, k, v, what=what, got=y.detach(), causal=causal)
+            _, want = fwd_bwd(lambda *t: ref.attention_ref(*t, **kw), (q, k, v), dout)
+            errs = grad_errs(got, want)
+            require(all(g.dtype == dtype for g in got) and max(errs) <= GRAD_REL[name],
+                    f"{what}: grad errors {errs} past {GRAD_REL[name]}")
+            fd = []
+            if dtype == torch.float32:
+                fd = fd_errs(torch, gen, lambda *t: (fa.flash_attention(*t, causal=causal),),
+                             (q, k, v), got, (dout,))
+                require(max(fd) <= FD_TOL, f"{what}: grads against the kernel's forward "
+                        f"{fd} past {FD_TOL}")
+            nbytes, flops = flash_work(B, Hq, Hkv, S, S, dh, causal, q.element_size())
+            b = bound(nbytes, flops, BF16_OPS_PER_S if dtype == torch.bfloat16
+                      else FP32_OPS_PER_S)
+            row = out[("flash_attention", f"train_{label}", name)] = dict(
+                max_abs_err=err,
+                ms=graph_ms(torch, [lambda: fa.flash_attention(q, k, v, causal=causal)]),
+                plain_ms=graph_ms(torch, [lambda: fa.flash_attention_plain(q, k, v, **kw)]),
+                bound_ms=b[0], bound_by=b[1],
+                library_ms=sdpa_ms(torch, q, k, v, causal=causal),
+                grad_rel_err=errs, fd_rel_err=fd,
+                fwd_bwd_ms=warm_ms(torch, lambda: fwd_bwd(
+                    lambda *t: fa.FlashAttentionFn.apply(*t, *args), (q, k, v), dout)),
+                plain_fwd_bwd_ms=warm_ms(torch, lambda: fwd_bwd(
+                    lambda *t: ref.attention_ref(*t, **kw), (q, k, v), dout)),
+                library_fwd_bwd_ms=warm_ms(torch, lambda: fwd_bwd(
+                    lambda *t: sdpa(*t, causal=causal), (q, k, v), dout)))
+            log_card(f"train: FlashAttentionFn {label} B={B} Hq={Hq} Hkv={Hkv} S={S} "
+                     f"dh={dh} causal={causal} {name} (transposed views): forward bit for "
+                     f"bit with the kernel's, max |err| {err:.3g} against the plain "
+                     f"version (held); grads (q, k, v) against the plain version's "
+                     f"autograd {[f'{e:.2e}' for e in errs]} (bound {GRAD_REL[name]})"
+                     + (f", against the kernel's forward {[f'{e:.2e}' for e in fd]} "
+                        f"(bound {FD_TOL})" if fd else "")
+                     + f"; forward {row['ms']:.6f} ms, bound {row['bound_ms']:.6f} "
+                     f"({row['bound_by']}), plain {row['plain_ms']:.6f}, SDPA "
+                     f"{row['library_ms']:.6f}; fwd+bwd {row['fwd_bwd_ms']:.3f} ms, plain "
+                     f"{row['plain_fwd_bwd_ms']:.3f}, SDPA {row['library_fwd_bwd_ms']:.3f}")
+            del q, k, v, dout, y, got, want
+    for label, Bt, L, Dm, with_h0 in TRAIN_SCAN:
+        for dtype in (torch.float32, torch.bfloat16):
+            torch.cuda.empty_cache()
+            name = str(dtype)[6:]
+            what = f"train scan {label} {name}"
+            x, dt, A, Bc, Cc, D, h0 = scan_inputs(torch, gen, dev, Bt, L, dtype, Dm=Dm)
+            h0 = h0 if with_h0 else None
+            ins = [t for t in (x, dt, A, Bc, Cc, D, h0) if t is not None]
+            no_h0 = [] if with_h0 else [None]
+            dy = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
+            dh = torch.randn((Bt, Dm, NS), generator=gen, device=dev)
+
+            def run(fn):
+                leaves = [t.detach().requires_grad_() for t in ins]
+                y, h = fn(*leaves, *no_h0)
+                return (y, h), torch.autograd.grad((y, h), leaves, (dy, dh))
+            (y, h), got = run(ms.MambaScanFn.apply)
+            yk, hk = ms.mamba_scan(x, dt, A, Bc, Cc, D, h0)
+            require(torch.equal(y, yk) and torch.equal(h, hk),
+                    f"{what}: Function forward differs from the kernel's")
+            (yp, hp), want = run(ref.mamba_scan_ref)
+            err = max(attn_close(torch, y.detach(), yp.detach(), SCAN_ATOL, f"{what} y"),
+                      attn_close(torch, h.detach(), hp.detach(), SCAN_ATOL, f"{what} h"))
+            errs = grad_errs(got, want)
+            require(got[0].dtype == dtype and max(errs) <= GRAD_REL[name],
+                    f"{what}: grad errors {errs} past {GRAD_REL[name]}")
+            fd = []
+            if dtype == torch.float32:
+                fd = fd_errs(torch, gen, lambda *t: ms.mamba_scan(*t, *no_h0), ins, got,
+                             (dy, dh))
+                require(max(fd) <= FD_TOL, f"{what}: grads against the kernel's forward "
+                        f"{fd} past {FD_TOL}")
+            nbytes, n_ops = scan_work(Bt, L, Dm, NS, x.element_size(), with_h0)
+            b = bound(nbytes, n_ops)
+            row = out[("mamba_scan", f"train_{label}", name)] = dict(
+                max_abs_err=err, ms=graph_ms(torch, [lambda: ms.mamba_scan(*ins, *no_h0)]),
+                plain_ms=graph_ms(torch, [lambda: ms.mamba_scan_plain(*ins, *no_h0)],
+                                  replays=5),
+                bound_ms=b[0], bound_by=b[1], library_ms=None, grad_rel_err=errs,
+                fd_rel_err=fd, fwd_bwd_ms=warm_ms(torch, lambda: run(ms.MambaScanFn.apply)),
+                plain_fwd_bwd_ms=warm_ms(torch, lambda: run(ref.mamba_scan_ref)))
+            log_card(f"train: MambaScanFn {label} Bt={Bt} L={L} Dm={Dm} N={NS} h0={with_h0} "
+                     f"{name}: forward bit for bit with the kernel's, max |err| {err:.3g} "
+                     f"against the plain version (y, h; held); grads (x, dt, A, B, C, D"
+                     f"{', h0' * with_h0}) against the plain version's autograd "
+                     f"{[f'{e:.2e}' for e in errs]} (bound {GRAD_REL[name]})"
+                     + (f", against the kernel's forward {[f'{e:.2e}' for e in fd]} "
+                        f"(bound {FD_TOL})" if fd else "")
+                     + f"; forward {row['ms']:.6f} ms, bound {row['bound_ms']:.6f} "
+                     f"({row['bound_by']}), plain {row['plain_ms']:.6f}; fwd+bwd "
+                     f"{row['fwd_bwd_ms']:.3f} ms, plain {row['plain_fwd_bwd_ms']:.3f}")
+            del x, dt, A, Bc, Cc, D, h0, ins, got, want, y, h, yp, hp
+    return out
+
+
+def train_batch(torch, cfg, B: int, S: int, device, seed: int = 0) -> dict:
+    """One ``PackedBatcher`` batch of the synthetic corpus on ``device``."""
+    from repro_torch.data import PackedBatcher, SyntheticCorpus
+    nb = PackedBatcher(SyntheticCorpus(cfg.vocab_size, seed=seed), B, S).next_batch()
+    return {k: torch.from_numpy(v).to(device) for k, v in nb.items()}
+
+
+def loss_and_grads(torch, model, params, batch):
+    """(the loss, autograd's gradient of every parameter leaf, None where
+    the loss does not reach it)."""
+    from repro_torch.models.convert import tree_leaves
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = model.loss_fn(params, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return float(loss.detach()), grads
+
+
+def check_train_model(torch, arch: str) -> dict:
+    """``arch`` at full width and 2 layers, one seeded set of bf16 weights
+    on the card and a copy on the CPU (the plain versions), one packed
+    batch (B 2, S 64): loss within TRAIN_LOSS_TOL, and every gradient
+    leaf within TRAIN_CPU_REL of its largest |grad| (each leaf's error
+    printed), none missing."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import tree_map
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    card = Model(cfg, device="cuda")
+    params = card.init_params(0)
+    host = tree_map(lambda t: t.to("cpu"), params)
+    t0 = time.perf_counter()
+    lc, gc_ = loss_and_grads(torch, card, params, train_batch(torch, cfg, 2, 64, "cuda"))
+    lh, gh = loss_and_grads(torch, Model(cfg, device="cpu"), host,
+                            train_batch(torch, cfg, 2, 64, "cpu"))
+    require(all(g is not None for g in gc_) and all(g is not None for g in gh),
+            f"train model {arch}: a parameter got no gradient")
+    errs = grad_errs([g.cpu() for g in gc_], gh)
+    require(math.isfinite(lc) and abs(lc - lh) <= TRAIN_LOSS_TOL,
+            f"train model {arch}: loss card {lc} vs CPU {lh}")
+    require(max(errs) <= TRAIN_CPU_REL,
+            f"train model {arch}: gradient errors {errs} past {TRAIN_CPU_REL}")
+    log_card(f"train model {arch}: 2-layer full width, loss card {lc:.5f} vs CPU {lh:.5f} "
+             f"(tolerance {TRAIN_LOSS_TOL}); grad rel err per leaf (bound {TRAIN_CPU_REL}) "
+             f"max {max(errs):.4f} {[round(e, 4) for e in errs]}; "
+             f"{time.perf_counter() - t0:.1f} s")
+    del card, params, gc_
+    torch.cuda.empty_cache()
+    return dict(loss_card=lc, loss_cpu=lh, grad_rel_max=max(errs))
+
+
+def train_step_bound(params, cfg, B: int, S: int) -> dict:
+    """The least time of one train step of B × S tokens: its phases, each
+    at its own roofline, summed. The bf16 layers: 6 · (N − embed − head)
+    products a token at the bf16 tensor-core rate (every layer parameter
+    counted as a matmul weight: norm scales, the scan's A and D and the
+    conv taps are under 0.1 % of them). The head, which the loss computes
+    in fp32: 6 · head a token at the fp32 rate. Causal attention's QK^T
+    and P·V: 12 · B · Hq · dh · S(S+1)/2 per attention layer (forward 4,
+    backward 8) at the bf16 rate. The scan: 3 · 7 · B · S · d_inner ·
+    d_state per Mamba layer (forward, backward twice) at the fp32 rate.
+    AdamW: OPT_BYTES_PER_PARAM a parameter at the HBM rate. The embedding
+    lookup does no products."""
+    n_params = tree_sum(params, lambda t: t.numel())
+    n_embed, n_head = params["embed"].numel(), params["head"].numel()
+    tokens = B * S
+    kinds = cfg.layer_kinds()
+    parts = {
+        "layers_ms": 6 * (n_params - n_embed - n_head) * tokens / BF16_OPS_PER_S,
+        "head_fp32_ms": 6 * n_head * tokens / FP32_OPS_PER_S,
+        "attention_ms": (12 * kinds.count("attn") * B * cfg.n_heads * cfg.head_dim
+                         * S * (S + 1) // 2 / BF16_OPS_PER_S),
+        "scan_ms": (3 * 7 * kinds.count("mamba") * tokens * cfg.ssm_d_inner
+                    * cfg.ssm_d_state / FP32_OPS_PER_S),
+        "adamw_ms": OPT_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S}
+    parts = {k: v * 1e3 for k, v in parts.items()}
+    return dict(bound_ms=sum(parts.values()), bound_parts=parts, params=n_params,
+                embed_params=n_embed, head_params=n_head)
+
+
+def step_split(torch, step_fn, params, opt_state, batch) -> dict:
+    """One train step run as its two parts, ``step_fn.grads`` (the loss
+    and its backward) and then ``step_fn.update`` (AdamW), each timed by
+    CUDA events."""
+    fb_ms, (_, grads) = event_ms(torch, lambda: step_fn.grads(params, batch))
+    opt_ms, _ = event_ms(torch, lambda: float(
+        step_fn.update(params, opt_state, grads)["grad_norm"]))
+    return dict(fwd_bwd_ms=fb_ms, adamw_ms=opt_ms)
+
+
+def run_train(torch, counters, arch: str, layers, B: int, S: int, timed: int) -> dict:
+    """``arch`` trained at full width (``layers`` of its depth, None for
+    all) on the card from seeded bf16 weights through the port's train
+    step (``launch.steps.make_train_step``: loss, autograd, AdamW in
+    place), ``PackedBatcher`` batches of B × S: one warm-up step, then
+    ``timed`` steps, each timed by CUDA events around the step and the
+    host's read of its loss. The kernels' launches are counted over the
+    timed steps (set to 0 before them) and must be one per layer of
+    their kind in the forward and one more in remat's recompute. Logs
+    step ms (each and p50), tokens/s, peak memory, the bound
+    (``train_step_bound``, each phase's share printed), each step's loss
+    and grad norm (finite) and the change of the parameters (non-zero);
+    then one more step run as its two parts (``step_split``), and one
+    under the profiler (its largest kernels and idle share)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import PackedBatcher, SyntheticCorpus
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    t_run = time.perf_counter()
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device="cuda")
+    params = model.init_params(0)
+    n_params = tree_sum(params, lambda t: t.numel())
+    opt_cfg = AdamWConfig(lr=3e-4, state_dtype=cfg.opt_state_dtype, warmup_steps=1,
+                          total_steps=timed + 1)
+    opt_state = init_opt_state(params, opt_cfg)
+    batcher = PackedBatcher(SyntheticCorpus(cfg.vocab_size, seed=0), B, S)
+    step_fn = make_train_step(model, opt_cfg)
+
+    def batch():
+        return {k: torch.from_numpy(v).cuda() for k, v in batcher.next_batch().items()}
+
+    t0 = time.perf_counter()
+    warm = step_fn(params, opt_state, batch())
+    warm_s = time.perf_counter() - t0
+    watched = {"layer 0 mixer": next(iter(params["layers"][0]["mix"].values())),
+               "head": params["head"], "final_norm": params["final_norm"]}
+    before = {k: t.detach().clone() for k, t in watched.items()}
+    kinds = cfg.layer_kinds()
+    expect = {"flash_attention": kinds.count("attn"), "mamba_scan": kinds.count("mamba")}
+    remat = 2 if cfg.remat in ("dots", "full") else 1
+    for name in expect:
+        counters[name].launches = 0
+    steps = []
+    for _ in range(timed):
+        ms_, (loss, gnorm) = event_ms(torch, lambda: (
+            lambda m: (float(m["loss"]), float(m["grad_norm"])))(
+                step_fn(params, opt_state, batch())))
+        steps.append((ms_, loss, gnorm))
+    launches = {n: counters[n].launches for n in expect}
+    for name, per_layer in expect.items():
+        require(launches[name] == per_layer * remat * timed,
+                f"train {arch}: {name} launched {launches[name]} times in {timed} steps, "
+                f"not {per_layer} layers x {remat} (remat {cfg.remat}) x {timed}")
+    require(all(math.isfinite(x) for s in steps for x in s[1:]),
+            f"train {arch}: non-finite loss or grad norm {steps}")
+    change = {k: float((t.detach().float() - before[k].float()).abs().max())
+              for k, t in watched.items()}
+    require(all(c > 0 for c in change.values()), f"train {arch}: parameters unchanged {change}")
+    split = step_split(torch, step_fn, params, opt_state, batch())
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        float(step_fn(params, opt_state, batch())["loss"])
+        wall_us = (time.perf_counter() - t1) * 1e6
+    trace = kernel_summary(torch, prof, wall_us, top=10)
+    p50 = statistics.median(s[0] for s in steps)
+    tokens = B * S
+    sb = train_step_bound(params, cfg, B, S)
+    bound_ms = sb["bound_ms"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    res = dict(arch=arch, layers=cfg.n_layers, params=n_params, B=B, S=S,
+               step_ms=[s[0] for s in steps], step_ms_p50=p50,
+               tokens_per_s=tokens / (p50 / 1e3), peak_gib=peak, bound_ms=bound_ms,
+               bound_parts=sb["bound_parts"], bound_share=bound_ms / p50, warmup_s=warm_s,
+               warmup_loss=float(warm["loss"]), losses=[s[1] for s in steps],
+               grad_norms=[s[2] for s in steps], param_change=change,
+               launches={n: c for n, c in launches.items() if expect[n]},
+               launches_per_step={n: c // timed for n, c in launches.items() if expect[n]},
+               **split)
+    log_card(f"train {arch}: {cfg.n_layers} layers at full width, {n_params / 1e9:.3f} B "
+             f"params, remat {cfg.remat}, {cfg.opt_state_dtype} moments, B {B} x S {S}: "
+             f"step ms {[round(s[0], 3) for s in steps]} p50 {p50:.3f} "
+             f"({tokens / (p50 / 1e3):.0f} tokens/s), bound {bound_ms:.3f} ms "
+             f"({ {k: round(v, 3) for k, v in sb['bound_parts'].items()} }; the step at "
+             f"{bound_ms / p50:.3f} of its bound), peak {peak:.2f} GiB, warm-up step "
+             f"{warm_s:.1f} s, losses {[round(s[1], 4) for s in steps]}, grad norms "
+             f"{[round(s[2], 4) for s in steps]}, param change {change}, launches a step "
+             f"{res['launches_per_step']} ({remat} per layer with remat {cfg.remat}); one "
+             f"more step split: loss + backward {split['fwd_bwd_ms']:.3f} ms, AdamW "
+             f"{split['adamw_ms']:.3f} ms; a profiled step: {trace}; this run "
+             f"{time.perf_counter() - t_run:.1f} s")
+    del model, params, opt_state, watched, before, warm, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_train_resume(torch) -> dict:
+    """llama3.2-3b at full width and 2 layers on the card, int8 moments
+    (kimi-k2's setting: a 4 GB checkpoint where fp32 moments make 10 GB,
+    and the quantized state through a save and a restore): 6 steps
+    straight against 3, a restart from the ``AsyncCheckpointer``'s save,
+    and 3 more; losses within RESUME_TOL (the embedding's backward sums
+    bf16 rows with atomics, so a step need not be bit-reproducible). Then a
+    checkpoint saved, the parameters changed in place before the writer
+    finished, and restored: the saved values come back."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.checkpoint import AsyncCheckpointer, restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run_training
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), n_layers=2, opt_state_dtype="int8")
+    ckpt = ROOT / "build" / "train_resume"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    quiet = lambda *_: None  # noqa: E731
+    kw = dict(batch=2, seq=64, log=quiet, device="cuda")
+    t0 = time.perf_counter()
+    full = run_training(cfg, steps=6, **kw)["losses"]
+    t1 = time.perf_counter()
+    run_training(cfg, steps=3, ckpt_dir=str(ckpt), ckpt_every=100, **kw)
+    resumed = run_training(cfg, steps=6, ckpt_dir=str(ckpt), ckpt_every=100, **kw)
+    t2 = time.perf_counter()
+    require(resumed["steps_run"] == 3, f"train resume: ran {resumed['steps_run']} steps")
+    again = resumed["losses"]
+    err = max(abs(a - b) for a, b in zip(full[3:], again))
+    require(err <= RESUME_TOL, f"train resume: losses {full[3:]} vs {again}")
+    del resumed
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    tree = {"w": torch.randn((1024, 4096), generator=gen, device="cuda").to(torch.bfloat16),
+            "n": torch.randn((4096,), generator=gen, device="cuda")}
+    want = {k: t.clone() for k, t in tree.items()}
+    snap = ckpt / "snapshot"
+    writer = AsyncCheckpointer(str(snap))
+    writer.save(1, tree)
+    for t in tree.values():
+        t.add_(1.0)                        # the next step's in-place update
+    writer.wait()
+    got, _, _ = restore_checkpoint(str(snap), device="cuda")
+    require(all(torch.equal(got[k], want[k]) for k in want),
+            "train resume: a restored snapshot differs from the values saved")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log_card(f"train resume: llama3.2-3b 2 layers full width, int8 moments, B 2 x S 64: "
+             f"losses straight "
+             f"{[round(x, 4) for x in full[3:]]} vs resumed "
+             f"{[round(x, 4) for x in again]} max |diff| {err:.5f} (tolerance "
+             f"{RESUME_TOL}); 6 straight steps {t1 - t0:.1f} s, 3 + save + restore + 3 + "
+             f"save {t2 - t1:.1f} s; snapshot restored equal after an in-place change")
+    return dict(resume_err=err)
+
+
+def run_train_phase(torch, dev, counters) -> dict:
+    """Phase 10: the kernels' Functions, the 2-layer card-vs-CPU checks,
+    the full-width runs and the resume check. Also logs whether the card's
+    ``torch._grouped_mm`` has a backward (MoE training's gate)."""
+    from repro_torch.models.moe import grouped_mm_has_backward
+    out = {"kernels": check_train_kernels(torch, dev)}
+    for arch in ("llama3.2-3b", "falcon-mamba-7b"):
+        out[f"model {arch}"] = check_train_model(torch, arch)
+    out["runs"] = [run_train(torch, counters, *run) for run in TRAIN_RUNS]
+    out["resume"] = check_train_resume(torch)
+    log(f"train: torch._grouped_mm has a backward on this card's torch "
+        f"{torch.__version__}: {grouped_mm_has_backward('cuda')}")
+    return out
+
+
 KERNELS = {
     "frontier_hop": ("src/repro_torch/csrc/frontier_hop.cu",
                      "src/repro/kernels/frontier_hop.py:182"),
@@ -3026,7 +3540,7 @@ KERNEL_WRAPPERS = {"scatter_rows": ("scatter_flush", "scatter_rows")}
 
 
 PHASES = ("build", "kernels", "index", "main", "parity", "shard", "sim", "serve",
-          "encdec_vlm")
+          "encdec_vlm", "train")
 
 
 def main(argv: list[str]) -> int:
@@ -3120,6 +3634,10 @@ def main(argv: list[str]) -> int:
             for arch in ENCDEC_VLM_ARCHS:
                 check_model(torch, arch)
             log_card(f"phase encdec_vlm: {time.perf_counter() - t0:.1f} s")
+        if "train" in phases:
+            t0 = time.perf_counter()
+            trained = run_train_phase(torch, dev, counters)
+            log_card(f"phase train: {time.perf_counter() - t0:.1f} s")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3131,9 +3649,12 @@ def main(argv: list[str]) -> int:
     launches.update({k: served[arch]["launches"][k] for k, arch in SERVE_KERNELS.items()})
     replayed.update({k: served[arch]["replay_launches"][k]
                      for k, arch in SERVE_KERNELS.items()})
+    numbers.update(trained["kernels"])   # the training shapes ride under "variants"
     fields = ("max_abs_err", "ms", "earlier_ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms", "entry_set_ms", "earlier_entry_set_ms", "entry_set_bound_ms",
-              "floor_ms", "earlier_floor_ms", "per_table_ms", "splits", "chunk", "chunk_ms")
+              "floor_ms", "earlier_floor_ms", "per_table_ms", "splits", "chunk", "chunk_ms",
+              "grad_rel_err", "fd_rel_err", "fwd_bwd_ms", "plain_fwd_bwd_ms",
+              "library_fwd_bwd_ms")
     rows = []
     for name, (source, replaces) in KERNELS.items():
         key = (name, *MAIN_KEY.get(name, ("float32",)))
@@ -3150,6 +3671,11 @@ def main(argv: list[str]) -> int:
             row["encdec_vlm"] = {a: {"launches": out["launches"].get(name, 0),
                                      "replay_launches": out["replay_launches"].get(name, 0)}
                                  for a, out in encdec.items()}
+        if any(name in run["launches"] for run in trained["runs"]):
+            # the full-width training runs' timed steps
+            row["train"] = {run["arch"]: {"launches": run["launches"][name],
+                                          "per_step": run["launches_per_step"][name]}
+                            for run in trained["runs"] if name in run["launches"]}
         if name in sharded:       # the cache kernels on the sharded and simulator paths
             row["shard"], row["sim"] = sharded[name], simulated[name]
         variants = {"_".join(k[1:]): {f: v[f] for f in fields if f in v}

@@ -1,1 +1,1 @@
-"""Fault tolerance for the serving loop (``fault``: the step watchdog)."""
+"""Fault tolerance (``fault``: preemption handler, step watchdog, retry)."""

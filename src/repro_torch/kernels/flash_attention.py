@@ -35,6 +35,16 @@ oracle ``ref.attention_ref`` for both types.
 One difference from the TPU wrapper: ``repro.kernels.ops.flash_attention``
 pads Skv with zero keys, which non-causal calls then attend to; here the
 edge is masked, so a key past Skv never takes probability mass.
+
+Training goes through ``FlashAttentionFn``, a ``torch.autograd.Function``
+whose forward is this wrapper (the kernel on a CUDA tensor, the plain
+version on a CPU tensor) and whose backward is autograd of the plain
+version. The reference has no backward kernel (XLA differentiates its
+jnp attention), so there is none here either: the backward recomputes
+``ref.attention_ref`` in fp32 from the saved q, k, v, with the
+probabilities rounded to bf16 where the forward's kernel rounds them
+(bf16 on the card), and returns its gradients in the inputs' dtypes. It
+launches no hand-written kernel and counts none.
 """
 
 from __future__ import annotations
@@ -113,3 +123,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = flash_attention.recorded = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` under autograd: the forward launches the kernel
+    (or, on a CPU tensor, runs the plain version); the backward is
+    ``torch.autograd.grad`` of ``ref.attention_ref`` recomputed from the
+    saved inputs. q, k, v are saved as given: the (B, H, S, dh) transposed
+    views of the model's projections stay views."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, kv_offset, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        kv_offset=kv_offset, scale=scale)
+        return flash_attention(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        # the function the forward computed: the bf16 kernel rounds P
+        p_dtype = torch.bfloat16 if q.is_cuda and q.dtype == torch.bfloat16 else None
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = ref.attention_ref(*ins, p_dtype=p_dtype, **ctx.opts)
+            dq, dk, dv = torch.autograd.grad(out, ins, dout)
+        return dq, dk, dv, None, None, None, None, None

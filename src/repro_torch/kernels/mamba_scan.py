@@ -27,6 +27,14 @@ it; a decode step needs it), and ``h_out``, which may be ``h0`` itself, so
 decode updates a layer's state in the cache in place. The TPU wrapper's
 padding of L with dt = 0 and its ``block_d``, ``block_l`` and
 ``interpret`` have no counterpart: the kernel takes any L ≥ 1 and any Dm.
+
+Training goes through ``MambaScanFn``, a ``torch.autograd.Function``
+whose forward is this wrapper and whose backward is autograd of the
+plain sequential scan ``ref.mamba_scan_ref`` recomputed from the saved
+inputs (the reference differentiates its jnp scan; it has no backward
+kernel). It gives gradients for x, dt, A, B, C, D and h0, launches no
+hand-written kernel and counts none. ``h_out`` is a decode-step path and
+takes no part in it.
 """
 
 from __future__ import annotations
@@ -85,3 +93,27 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tens
 
 
 mamba_scan.launches = mamba_scan.recorded = 0
+
+
+class MambaScanFn(torch.autograd.Function):
+    """``mamba_scan`` under autograd -> (y, h_final): the forward launches
+    the kernel (the plain version on a CPU tensor); the backward is
+    ``torch.autograd.grad`` of ``ref.mamba_scan_ref`` recomputed from the
+    saved inputs, for every input that needs one."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, h0):
+        ctx.save_for_backward(x, dt, A, B, C, D, h0)
+        return mamba_scan(x, dt, A, B, C, D, h0)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_(need)
+                   for t, need in zip(saved, ctx.needs_input_grad)]
+            y, h = ref.mamba_scan_ref(*ins)
+            wrt = [t for t in ins if t is not None and t.requires_grad]
+            got = iter(torch.autograd.grad((y, h), wrt, (dy, dh), allow_unused=True))
+        return tuple(next(got) if t is not None and t.requires_grad else None
+                     for t in ins)

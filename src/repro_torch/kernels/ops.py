@@ -9,6 +9,13 @@ call raises. There is no fallback from one to the other. Kernels take any
 N, B and d (a multiple of 4), any Sq and Skv, and any L, so unlike the
 TPU wrappers nothing is padded and no output needs slicing back; the TPU
 wrappers' tile sizes and ``interpret`` switch have no counterpart.
+
+With grad enabled and an input that requires grad (``_differentiable``),
+``flash_attention`` and ``mamba_scan`` go through their kernels'
+``torch.autograd.Function``s (``FlashAttentionFn``,
+``MambaScanFn``): the same forward, on either device, and a backward by
+autograd of the plain version, so the CPU tests run the backward code
+the card runs.
 """
 
 from __future__ import annotations
@@ -47,6 +54,13 @@ def _f32_16(t: torch.Tensor) -> torch.Tensor:
     slice, such as B and C split from one projection at batch 1)."""
     t = _f32(t)
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _differentiable(*tensors) -> bool:
+    """Whether a call must go through its kernel's autograd Function: grad
+    is enabled and one of ``tensors`` (None skipped) requires grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in tensors)
 
 
 def cache_topk(table: torch.Tensor, valid: torch.Tensor, queries: torch.Tensor,
@@ -162,7 +176,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     ) -> torch.Tensor:
     """Prefill attention: q (B, Hq, Sq, dh), k/v (B, Hkv, Skv, dh) -> like
     q. Any Sq and Skv: the kernel masks its edges (nothing is padded, so a
-    non-causal call never attends to a padding key)."""
+    non-causal call never attends to a padding key). Differentiable
+    (``FlashAttentionFn``) where ``_differentiable`` says so."""
+    if _differentiable(q, k, v):
+        return _fa.FlashAttentionFn.apply(q, k, v, causal, window, softcap, kv_offset,
+                                          None)
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                softcap=softcap, kv_offset=kv_offset)
 
@@ -186,6 +204,13 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tens
     D (Dm,); h0 (Bt, Dm, N) or None (zeros) -> (y like x, h_final fp32).
     Any L ≥ 1, nothing padded. ``h_out`` (contiguous fp32, 16-byte
     aligned as h0, may be ``h0`` itself) receives h_final in place: a decode step updates the layer's
-    cached state without a copy."""
-    return _ms.mamba_scan(x.contiguous(), _f32(dt), _f32_16(A), _f32_16(B), _f32_16(C),
-                          _f32(D), None if h0 is None else _f32(h0), h_out=h_out)
+    cached state without a copy. Differentiable (``MambaScanFn``) where
+    ``_differentiable`` says so, and then it refuses ``h_out``."""
+    args = (x.contiguous(), _f32(dt), _f32_16(A), _f32_16(B), _f32_16(C), _f32(D),
+            None if h0 is None else _f32(h0))
+    if _differentiable(*args):
+        if h_out is not None:
+            raise ValueError("mamba_scan: h_out (a decode step's in-place state) "
+                             "takes no gradient; pass h_out=None when training")
+        return _ms.MambaScanFn.apply(*args)
+    return _ms.mamba_scan(*args, h_out=h_out)

@@ -10,7 +10,8 @@ ported part of ``repro.models``).
     transformer  — the decoder stack (attention or Mamba, then a dense, MoE
                    or no FFN) and its in-place K/V and Mamba-state cache
     model        — Model facade: init_params, init_cache, prefill, decode_step
-    convert      — the reference's parameters carried across
+    convert      — the reference's parameters carried across; the
+                   parameter-tree helpers (tree_leaves, tree_map, ...)
 """
 
 from repro_torch.models.config import ArchConfig  # noqa: F401

@@ -17,6 +17,10 @@ engine-parity check use it, since ``torch.Generator`` cannot reproduce
 ``jax.random``'s draws. It imports nothing of JAX: bfloat16 leaves arrive
 as numpy arrays of the ``ml_dtypes`` bfloat16 type (2 bytes each) and are
 reinterpreted bit for bit.
+
+The tree helpers (``tree_leaves``, ``tree_map``, ``tree_unflatten``,
+``tree_zip``) walk the port's parameter trees wherever they are walked:
+here, in the optimizer, the train step and the checks.
 """
 
 from __future__ import annotations
@@ -34,8 +38,43 @@ def to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _tree(x, fn):
-    return {k: _tree(v, fn) for k, v in x.items()} if isinstance(x, dict) else fn(x)
+# -- parameter trees: nested dicts and lists, tensors (or arrays) at the leaves
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists, in insertion order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    """``fn`` at every leaf of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_unflatten(like, leaves):
+    """``leaves`` (in ``tree_leaves`` order) in the structure of ``like``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def tree_zip(tree, *others):
+    """(leaf, the node at the same place in each of ``others``), walking
+    ``tree``'s structure (the others may hold dicts at its leaves)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_zip(v, *(o[k] for o in others))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from tree_zip(v, *(o[i] for o in others))
+    else:
+        yield (tree, *others)
 
 
 def _layers(groups: dict, n_layers: int, device) -> list[dict]:
@@ -46,7 +85,7 @@ def _layers(groups: dict, n_layers: int, device) -> list[dict]:
     if n_sub * n_groups != n_layers:
         raise ValueError(f"params_from_reference: {n_groups} groups of {n_sub} "
                          f"sublayers do not make {n_layers} layers")
-    return [_tree(groups[f"sub{i}"], lambda a, g=g: to_tensor(np.asarray(a)[g], device))
+    return [tree_map(lambda a, g=g: to_tensor(np.asarray(a)[g], device), groups[f"sub{i}"])
             for g in range(n_groups) for i in range(n_sub)]
 
 

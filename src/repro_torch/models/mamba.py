@@ -3,17 +3,22 @@
 The counterpart of ``repro.models.mamba``. The reference computes the scan
 in jnp (an outer ``lax.scan`` over chunks around an ``associative_scan``
 that materializes (B, chunk, d_inner, N) fp32 ``dA`` and ``dBx``) and names
-the Pallas ``mamba_scan`` as its replacement on the chip; the port always
-calls the kernel, through ``ops.mamba_scan``: the CUDA kernel on CUDA
-tensors, its plain sequential version on CPU tensors. The D skip term
-comes out of the kernel, so ``mamba_mix`` does not add it again.
+the Pallas ``mamba_scan`` as its replacement on the chip; the port calls
+the kernel through ``ops.mamba_scan``: the CUDA kernel on CUDA tensors,
+its plain sequential version on CPU tensors. In training (grad enabled)
+that call goes through ``MambaScanFn``: the same forward, and a backward
+by autograd of the plain scan, since the kernel has no backward (nor has
+the reference, whose jnp scan XLA differentiates). The D skip term comes
+out of the kernel, so ``mamba_mix`` does not add it again.
 
 The dtype steps are the reference's, one for one: the x-projection is
 rounded to x's dtype before its fp32 split, the causal conv runs as K
 shifted multiply-adds in x's dtype (``F.conv1d`` would accumulate bf16
 otherwise), and ``silu`` of the conv output is rounded back to x's dtype.
 
-A decode step is ``mamba_block`` at L = 1 with the carried state
+Training runs ``mamba_block`` with no state: the scan starts from zeros
+and writes nothing in place. A decode step is ``mamba_block`` at L = 1
+with the carried state
 {"h": (B, d_inner, N) fp32, "conv": (B, K-1, d_inner)}. With ``out_state``
 the block writes the new state into those tensors in place (it may be the
 ``state`` it read: the kernel reads each state element before it writes

@@ -14,8 +14,20 @@ An ssm model (falcon-mamba) carries its Mamba state in the cache instead
 of K/V, and a hybrid one (jamba) both; ``kv_len`` is still returned and
 advanced, as the reference does, so the serving loop is the same for
 every family. An MoE layer's load-balancing loss is discarded, as the
-reference's prefill and decode discard it. Training (``loss_fn``) is not
-ported.
+reference's prefill and decode discard it.
+
+Training: ``loss_fn`` is the reference's, one for one: whisper's encoder
+and each layer's cross K/V (computed, never written into a cache),
+llava's patch prefix with its labels masked (-1), the stack in train mode
+under ``cfg.remat``, then a sequence-chunked fp32 cross-entropy over
+``cfg.loss_chunk`` positions at a time (the head cast to fp32 per call,
+differentiably; padded vocab columns at -1e30; ``final_softcap``; labels
+< 0 masked), plus ``router_aux_weight`` times the MoE aux loss. It runs
+outside ``inference_mode`` and needs parameters that are ordinary
+tensors: ``init_params`` and ``convert.params_from_reference`` make
+them so, and the train step sets ``requires_grad_`` on them. The
+serving head copy is keyed by the head tensor and its version counter,
+so an optimizer's in-place update makes a new copy.
 
 Whisper (encdec): prefill runs the encoder over ``batch["audio"]`` (B,
 enc_ctx, enc_dim), the frontend's frame embeddings: a projection, the
@@ -129,17 +141,25 @@ class Model:
         x = x + _sinusoid_at(pos, cfg.d_model).to(x.dtype)
         enc_cfg = self._enc_cfg()
         pattern = [tf.SubLayerSpec(kind="attn", mlp="dense", causal=False)] * enc_cfg.n_layers
-        x = tf.stack_apply(x, params["enc"]["layers"], enc_cfg, mode="train",
-                           positions=pos, pattern=pattern)
+        x, _ = tf.stack_apply(x, params["enc"]["layers"], enc_cfg, mode="train",
+                              positions=pos, pattern=pattern)
         return rms_norm(x, params["enc"]["final_norm"], cfg.norm_eps)
+
+    @staticmethod
+    def _layer_cross_kv(layer: dict, enc_out: torch.Tensor) -> tuple:
+        """One decoder layer's cross (k, v) of the encoder output, each
+        (B, enc_ctx, Hkv, dh)."""
+        B, C, d = enc_out.shape
+        return tuple((enc_out @ w.to(enc_out.dtype).reshape(d, -1)).view(B, C, *w.shape[1:])
+                     for w in (layer["cross"]["wk"], layer["cross"]["wv"]))
 
     def _cross_kv(self, params, enc_out: torch.Tensor, cache: dict) -> None:
         """Each decoder layer's cross K/V of the encoder output, written in
         place into the cache's ``ck`` / ``cv`` (L, B, enc_ctx, Hkv, dh)."""
-        B, C, d = enc_out.shape
         for layer, ck, cv in zip(params["layers"], cache["ck"], cache["cv"]):
-            for w, out in ((layer["cross"]["wk"], ck), (layer["cross"]["wv"], cv)):
-                out.copy_((enc_out @ w.to(enc_out.dtype).reshape(d, -1)).view(out.shape))
+            k, v = self._layer_cross_kv(layer, enc_out)
+            ck.copy_(k)
+            cv.copy_(v)
 
     def _dec_inputs(self, params, tokens: torch.Tensor, positions: torch.Tensor
                     ) -> torch.Tensor:
@@ -154,15 +174,75 @@ class Model:
             return None
         key, what = EXTRA_INPUT[self.cfg.family]
         if key not in batch:
-            raise ValueError(f"{self.cfg.name}: the {self.cfg.family} family's prefill "
+            raise ValueError(f"{self.cfg.name}: the {self.cfg.family} family "
                              f"needs batch[{key!r}], {what}")
         return batch[key]
 
     def _head(self, params) -> torch.Tensor:
+        """The serving head's fp32 copy, made anew when the head tensor
+        or its contents (its version counter) change."""
         head = params["head"]
-        if self._head_f32 is None or self._head_f32[0] is not head:
-            self._head_f32 = (head, head.to(torch.float32))
-        return self._head_f32[1]
+        version = 0 if head.is_inference() else head._version
+        cached = self._head_f32
+        if cached is None or cached[0] is not head or cached[1] != version:
+            self._head_f32 = (head, version, head.detach().to(torch.float32))
+        return self._head_f32[2]
+
+    # ------------------------------------------------------------ training
+    def loss_fn(self, params, batch: dict) -> tuple[torch.Tensor, dict]:
+        """batch: tokens (B, S), labels (B, S) int (-1 = masked), plus the
+        family's input: audio (B, enc_ctx, enc_dim) [encdec], patches (B,
+        P, d) [vlm]. Returns (total loss, {"xent", "aux", "tokens"}), fp32
+        scalars on the model's device: total = xent + router_aux_weight ·
+        aux, xent the mean over unmasked labels."""
+        cfg = self.cfg
+        extra = self._extra_input(batch)
+        tokens = batch["tokens"].to(self.device)
+        labels = batch["labels"].to(self.device)
+        positions = torch.arange(tokens.shape[1], device=self.device)
+        enc_kv = None
+        if cfg.family == "encdec":
+            enc_out = self._encode(params, extra)
+            enc_kv = [self._layer_cross_kv(layer, enc_out) for layer in params["layers"]]
+        x = self._dec_inputs(params, tokens, positions)
+        if cfg.family == "vlm":
+            patches = extra.to(self.device, x.dtype)
+            x = torch.cat([patches, x], dim=1)
+            positions = torch.arange(x.shape[1], device=self.device)
+            pad = torch.full(patches.shape[:2], -1, dtype=labels.dtype, device=self.device)
+            labels = torch.cat([pad, labels], dim=1)
+        x, aux = tf.stack_apply(x, params["layers"], cfg, mode="train",
+                                positions=positions, enc_kv=enc_kv)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        xent, n_tok = self._chunked_xent(params, x, labels)
+        total = xent + cfg.router_aux_weight * aux
+        return total, {"xent": xent, "aux": aux, "tokens": n_tok}
+
+    def _chunked_xent(self, params, x: torch.Tensor, labels: torch.Tensor):
+        """Mean cross-entropy over labels >= 0, ``cfg.loss_chunk`` positions
+        at a time (one chunk if it does not divide S), so the (B, S, Vp)
+        fp32 logits never exist at once. Returns (mean, count)."""
+        cfg = self.cfg
+        B, S, d = x.shape
+        chunk = min(cfg.loss_chunk, S)
+        if S % chunk:
+            chunk = S
+        head = params["head"].to(torch.float32)
+        vmask = torch.arange(head.shape[0], device=x.device) < cfg.vocab_size
+        nll = torch.zeros((), dtype=torch.float32, device=x.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+        for off in range(0, S, chunk):
+            xc, lc = x[:, off:off + chunk], labels[:, off:off + chunk]
+            logits = xc.to(torch.float32) @ head.T                       # (B, c, Vp)
+            if cfg.final_softcap is not None:
+                logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+            logits = torch.where(vmask, logits, -1e30)
+            logp = torch.log_softmax(logits, dim=-1)
+            take = logp.gather(-1, lc.clamp(min=0).long()[..., None])[..., 0]
+            mask = (lc >= 0).to(torch.float32)
+            nll = nll + (-take * mask).sum()
+            cnt = cnt + mask.sum()
+        return nll / cnt.clamp(min=1.0), cnt
 
     def _logits_last(self, params, x_last: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg

@@ -45,9 +45,19 @@ so no copy of the weights is made.
 
 The reference's ``_ragged_dot`` custom VJP works around a jax 0.4.x
 cotangent dtype bug in training; it has no counterpart here.
+
+Training: on the CPU the whole FFN, the Switch aux loss included, is
+differentiable (the loop's products, the sort's values, the index ops).
+On the card the backward needs one of ``torch._grouped_mm``, which a
+given torch build may lack: with grad enabled and an operand that
+requires grad, ``grouped_mm`` first asks the card's build
+(``grouped_mm_has_backward``) and raises ``NotImplementedError`` naming
+it where there is none, rather than switch to the loop.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -117,12 +127,34 @@ def grouped_mm(rows: torch.Tensor, w: torch.Tensor, offs: torch.Tensor
     if op is None:
         raise RuntimeError(f"moe grouped product: torch {torch.__version__} has no "
                            f"torch._grouped_mm")
+    if (torch.is_grad_enabled() and (rows.requires_grad or w.requires_grad)
+            and not grouped_mm_has_backward(str(rows.device))):
+        raise NotImplementedError(f"moe training on {rows.device}: torch._grouped_mm "
+                                  f"has no backward in torch {torch.__version__}")
     try:
         return op(rows, w, offs=offs)
     except RuntimeError as exc:
         raise RuntimeError(f"moe grouped product: torch._grouped_mm refused rows "
                            f"{tuple(rows.shape)} {rows.stride()} and experts "
                            f"{tuple(w.shape)} {w.stride()}: {exc}") from exc
+
+
+@functools.cache
+def grouped_mm_has_backward(device: str) -> bool:
+    """Whether ``torch._grouped_mm`` on ``device`` differentiates: one
+    product of two groups of 8 bf16 rows, and its gradients."""
+    op = getattr(torch, "_grouped_mm", None)
+    if op is None:
+        return False
+    with torch.enable_grad():
+        rows = torch.ones((16, 16), dtype=torch.bfloat16, device=device, requires_grad=True)
+        w = torch.ones((2, 16, 16), dtype=torch.bfloat16, device=device, requires_grad=True)
+        offs = torch.tensor([8, 16], dtype=torch.int32, device=device)
+        try:
+            torch.autograd.grad(op(rows, w, offs=offs).sum(), (rows, w))
+        except (RuntimeError, NotImplementedError):
+            return False
+    return True
 
 
 def moe_ffn_routed(x: torch.Tensor, p: dict, cfg

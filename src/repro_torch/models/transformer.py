@@ -28,13 +28,29 @@ Attention takes any query length, so the reference's query chunking
 has no counterpart; it changes rounding only. The MoE layers'
 load-balancing loss is discarded, as the reference's prefill and decode
 discard it.
+
+Train mode (``Model.loss_fn``) takes no cache: ``stack_apply`` returns
+(x, aux), aux the MoE layers' summed load-balancing loss (0 without
+experts), as the reference's returns it beside x. An encdec decoder
+takes each layer's cross K/V as ``enc_kv`` (computed before the stack,
+as the reference's ``_cross_kv``). With grad enabled each layer runs
+under ``cfg.remat``, the reference's ``group_body`` policy: "full"
+checkpoints the layer (``torch.utils.checkpoint``, non-reentrant) and
+recomputes it in the backward; "dots" does the same but keeps the
+outputs of the matrix products (``aten.mm`` / ``bmm`` / ``addmm``, the
+reference's ``checkpoint_dots``) and recomputes the rest. The
+attention and scan kernels are not matrix products to the policy, so
+both run again in the recompute: a second real launch each. Remat moves
+memory, never results.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
@@ -179,12 +195,16 @@ def mamba_sublayer(x, sp, cfg, *, state=None, fresh: bool = False):
 
 
 def sublayer_apply(x, sp, cfg, spec: SubLayerSpec, *, mode: str, positions,
-                   cache=None, slot: int = 0, kv_len=None, kv_offset: int = 0):
+                   cache=None, slot: int = 0, kv_len=None, kv_offset: int = 0,
+                   enc_kv=None):
     """One layer: its mixer, its cross-attention if it has one, then its
-    MLP if it has one. ``cache`` is the whole stacked cache and ``slot``
+    MLP if it has one -> (x, aux), aux its MoE load-balancing loss (fp32,
+    0 without experts). ``cache`` is the whole stacked cache and ``slot``
     the layer's index into its kind's tensors (``cache_slots``; an encdec
     decoder layer's index into ``ck``/``cv`` too, every layer of it being
-    attention)."""
+    attention). In train mode an encdec layer's cross K/V come as
+    ``enc_kv`` = (k, v), each (B, enc_ctx, Hkv, dh)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.kind == "attn":
         ck = cv = None
         if cache is not None:
@@ -199,26 +219,58 @@ def sublayer_apply(x, sp, cfg, spec: SubLayerSpec, *, mode: str, positions,
                            fresh=mode == "prefill" and kv_offset == 0)
     if spec.cross and cache is not None:
         x = cross_sublayer(x, sp, cfg, cache["ck"][slot], cache["cv"][slot])
+    elif spec.cross and enc_kv is not None:
+        x = cross_sublayer(x, sp, cfg, *enc_kv)
     if spec.mlp == "dense":
         h = rms_norm(x, sp["ln_mlp"], cfg.norm_eps)
         x = x + swiglu(h, sp["mlp"]["w_gate"], sp["mlp"]["w_up"],
                        sp["mlp"]["w_down"]).to(x.dtype)
     elif spec.mlp == "moe":
         h = rms_norm(x, sp["ln_mlp"], cfg.norm_eps)
-        y, _ = moe_mod.moe_apply(h, sp["mlp"], cfg)
+        y, aux = moe_mod.moe_apply(h, sp["mlp"], cfg)
         x = x + y.to(x.dtype)
-    return x
+    return x, aux
+
+
+# The reference's ``checkpoint_dots``: keep the matrix products' outputs.
+_SAVE_DOTS = functools.partial(create_selective_checkpoint_contexts,
+                               [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                                torch.ops.aten.addmm.default])
+
+
+def _remat(layer_fn, x, remat: str):
+    """``layer_fn(x)`` under the config's remat policy ("none", "dots",
+    "full"); only with grad enabled, since remat is a backward's trade."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return layer_fn(x)
+    if remat == "full":
+        return checkpoint(layer_fn, x, use_reentrant=False)
+    if remat == "dots":
+        return checkpoint(layer_fn, x, use_reentrant=False, context_fn=_SAVE_DOTS)
+    raise ValueError(f"remat must be none, dots or full, not {remat!r}")
 
 
 def stack_apply(x, layers: list[dict], cfg, *, mode: str, positions, cache=None,
-                kv_len=None, kv_offset: int = 0, pattern=None):
+                kv_len=None, kv_offset: int = 0, pattern=None, enc_kv=None):
     """Run every layer over x. ``cache`` (``init_cache``'s dict) is updated
-    in place in prefill and decode modes; train mode takes none.
-    ``pattern`` (default ``layer_pattern(cfg)``) gives each layer's spec:
-    whisper's encoder passes non-causal attention layers."""
+    in place in prefill and decode modes, which return x; train mode takes
+    none and returns (x, aux), aux the summed MoE load-balancing loss,
+    each layer under ``cfg.remat``. ``enc_kv`` (train mode, encdec) holds
+    each layer's cross (k, v). ``pattern`` (default ``layer_pattern(cfg)``)
+    gives each layer's spec: whisper's encoder passes non-causal attention
+    layers."""
     if pattern is None:
         pattern = layer_pattern(cfg)
+    if mode == "train":
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, (sp, spec) in enumerate(zip(layers, pattern)):
+            layer_fn = functools.partial(
+                sublayer_apply, sp=sp, cfg=cfg, spec=spec, mode=mode, positions=positions,
+                enc_kv=None if enc_kv is None else enc_kv[i])
+            x, aux = _remat(layer_fn, x, cfg.remat)
+            aux_total = aux_total + aux
+        return x, aux_total
     for sp, spec, slot in zip(layers, pattern, cache_slots(pattern)):
-        x = sublayer_apply(x, sp, cfg, spec, mode=mode, positions=positions,
-                           cache=cache, slot=slot, kv_len=kv_len, kv_offset=kv_offset)
+        x, _ = sublayer_apply(x, sp, cfg, spec, mode=mode, positions=positions,
+                              cache=cache, slot=slot, kv_len=kv_len, kv_offset=kv_offset)
     return x
