@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive repro_torch's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--phases build,kernels,index,main,parity,shard,sim,serve,encdec_vlm,train]
+    python3 chip_smoke.py [--phases build,kernels,index,main,parity,shard,sim,serve,
+                                    encdec_vlm,train,dist]
 
 Run from the root of a checkout: it puts ``src/`` on ``sys.path`` itself,
 builds the CUDA kernels into ``build/repro_torch/`` with ``nvcc`` (sm_90a)
@@ -114,11 +115,11 @@ Phases (any failure exits non-zero and prints no result):
              decode step, and its peak memory;
 7. shard   — ``ShardedSemanticCache`` of 4 shards at capacity 1,048,576
              (each shard's table too), main's traffic and combinations:
-             the first 200 steps, a live ``migrate_category`` of
+             the first 100 steps, a live ``migrate_category`` of
              code_generation to another shard and ``rebalance()`` back,
              each followed by 64 probe queries of it (on flat decided as
              before the move; an HNSW shard's graph changes with the
-             move, so hnsw only logs how many differ), the last 200
+             move, so hnsw only logs how many differ), the last 100
              steps. Launches per shard as in main, summed over the shards
              (each shard captures a graph per batch bucket its
              sub-batches reach); a profiled sharded lookup's trace holds
@@ -131,7 +132,10 @@ Phases (any failure exits non-zero and prints no result):
              replicated head category with its primary down (failover,
              no degraded read, every queued write replayed), and an
              unreplicated category's shard down past
-             ``rebalance_after_s`` (rebuilt on a live shard, then home);
+             ``rebalance_after_s`` (rebuilt on a live shard, then home).
+             The move at 1,024 rows and the fault runs take 400 steps (the
+             move must pass the rebuild threshold; the faults end 60 s
+             into the traffic);
 8. sim     — ``ServingSimulator`` (hybrid, device search, the long-tail
              benchmark's configuration: capacity 12,000, 4,000 Table-1
              queries, seed 42) for {hnsw, flat} x {1, 4} shards on the
@@ -187,6 +191,34 @@ Phases (any failure exits non-zero and prints no result):
              restart + 3, losses within 2e-2) and a checkpoint snapshot
              that survives an in-place change.
 
+11. dist   — distribution, four ranks on the one card over gloo
+             (``launch.mesh.launch_ranks``; gloo stages every CUDA buffer
+             through host memory, so its times are not a four-card
+             deployment's). First FlashAttentionFn at a rank's local
+             heads (B 4, 12 / 4, 512 causal, dh 128) as in ``train``.
+             Then on (data 2, model 2), seeded bf16 weights: llama3.2-3b
+             at full width and 4 of 28 layers (cut for the time limit),
+             B 8 × S 512 — the sharded loss and every gathered gradient
+             leaf against the one-process card run (0.1, ``train``'s
+             tolerances), each rank's blocks' bytes equal to the plan's
+             share, 3 timed train steps (step ms, peak GiB per rank,
+             flash_attention 8 launches a step a rank: 4 layers × 2 with
+             remat, the host seconds in the staged transfers
+             (``time_collectives``)) and the gathered parameters after
+             them against the one-process steps (each leaf's update within
+             DIST_UPDATE_REL, each step's grad norm within
+             DIST_GNORM_REL); granite-moe-3b-a800m at full width and 4
+             of 32 layers, the forward loss through ``moe_ffn_ep`` at
+             capacity 8.0 (no pair dropped, the loss within 0.1 of the
+             one-process routed loss) and at the config's 1.5 (drops
+             counted), and one layer's EP FFN with its router biased to
+             data shard 0, card against the same run on 4 CPU gloo ranks:
+             equal drops and kept masks (``moe.kept_pairs`` on the ids
+             each ``_moe_local`` call took), outputs within DIST_FFN_REL
+             of max |y|. Then a GPipe of the 4-layer
+             llama on (pod 2, data 1, model 2), 4 microbatches, within
+             2e-3 of the sequential loss. Logs the calls gloo staged.
+
 The last lines are a ``{"kernels": [...]}`` object (``launches``: those
 made at wrapper calls in the run of the kernel's path; ``replay_launches``:
 those its graphs' replays made, each graph's recorded launches times its
@@ -195,7 +227,8 @@ in the 4-shard card runs of phase 7, with ``per_shard`` replays (delta
 flushes for scatter_rows), and in the hybrid card runs of phase 8; for
 the model kernels ``serve``, the same two counts in each served model's
 run that launched it, ``encdec_vlm``, those of phase 9's runs, and
-``train``, those of phase 10's timed steps), the
+``train``, those of phase 10's timed steps, and for flash_attention
+``dist``, those of phase 11's ranks' timed steps), the
 card's name and power limit from nvidia-smi, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -212,6 +245,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -1965,10 +1999,14 @@ def run_outages(torch, counters, qs) -> dict:
     return out
 
 
-def run_shard_path(torch, counters, steps: int) -> dict:
-    """Phase 7 (see the module docstring). Returns, for the cache kernels,
-    the launches of the four 4-shard card runs: at wrapper calls, in graph
-    replays, and in replays per shard."""
+def run_shard_path(torch, counters, steps: int, long_steps: int) -> dict:
+    """Phase 7 (see the module docstring): ``steps`` batches of 8 through
+    each 4-shard run, the move at half of them; the move at 1,024 rows a
+    shard and the outage runs take ``long_steps`` (the move must carry
+    enough entries to pass the rebuild threshold, and the faults end at 60
+    s of traffic time, 30 queries a second). Returns, for the cache
+    kernels, the launches of the four 4-shard card runs: at wrapper calls,
+    in graph replays, and in replays per shard."""
     import numpy as np
     qs = table1_queries(steps * 8, seed=1)
     total = {k: dict(launches=0, replay_launches=0, per_shard=[0] * N_SHARDS)
@@ -2049,7 +2087,8 @@ def run_shard_path(torch, counters, steps: int) -> dict:
     # before the move only if the new graphs read the new tables.
     for fn in counters.values():
         fn.launches = 0
-    _, _, cache, move = run_sharded(torch, counters, "flat", "float32", qs, "cuda",
+    long_qs = table1_queries(long_steps * 8, seed=1)
+    _, _, cache, move = run_sharded(torch, counters, "flat", "float32", long_qs, "cuda",
                                     shard_capacity=MOVE_SHARD_CAPACITY)
     require(move["full_uploads"] and move["full_uploads_back"],
             f"shard move at {MOVE_SHARD_CAPACITY} rows a shard: no full upload "
@@ -2065,7 +2104,7 @@ def run_shard_path(torch, counters, steps: int) -> dict:
     del cache
     gc.collect()
     torch.cuda.empty_cache()
-    run_outages(torch, counters, qs)
+    run_outages(torch, counters, long_qs)
     return total
 
 
@@ -3098,9 +3137,11 @@ def fd_errs(torch, gen, fn, ins, grads, cots) -> list:
     return errs
 
 
-def check_train_kernels(torch, dev) -> dict:
+def check_train_kernels(torch, dev, flash_shapes=TRAIN_FLASH, scan_shapes=TRAIN_SCAN
+                        ) -> dict:
     """FlashAttentionFn and MambaScanFn on the card at the training
-    shapes (``TRAIN_FLASH``, ``TRAIN_SCAN``), fp32 and bf16:
+    shapes (``flash_shapes``, ``scan_shapes``; phase ``dist`` passes the
+    local heads of a rank), fp32 and bf16:
     - the Function's forward equals the kernel wrapper's output bit for
       bit, and is held against the plain version: attention by
       ``flash_close``, the scan's y and h_final by ``attn_close`` within
@@ -3130,7 +3171,7 @@ def check_train_kernels(torch, dev) -> dict:
         y = fn(*leaves)
         return y, torch.autograd.grad(y, leaves, dout)
 
-    for label, B, Hq, Hkv, S, dh, causal in TRAIN_FLASH:
+    for label, B, Hq, Hkv, S, dh, causal in flash_shapes:
         for dtype in (torch.float32, torch.bfloat16):
             torch.cuda.empty_cache()
             name = str(dtype)[6:]
@@ -3182,7 +3223,7 @@ def check_train_kernels(torch, dev) -> dict:
                      f"{row['library_ms']:.6f}; fwd+bwd {row['fwd_bwd_ms']:.3f} ms, plain "
                      f"{row['plain_fwd_bwd_ms']:.3f}, SDPA {row['library_fwd_bwd_ms']:.3f}")
             del q, k, v, dout, y, got, want
-    for label, Bt, L, Dm, with_h0 in TRAIN_SCAN:
+    for label, Bt, L, Dm, with_h0 in scan_shapes:
         for dtype in (torch.float32, torch.bfloat16):
             torch.cuda.empty_cache()
             name = str(dtype)[6:]
@@ -3505,6 +3546,461 @@ def run_train_phase(torch, dev, counters) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 11
+# Four ranks on the one card over gloo (``launch.mesh.launch_ranks``): the
+# layouts, the collectives' results and every kernel on its local shard.
+# Four processes share one card and gloo stages every CUDA buffer through
+# host memory, so the times say nothing of a four-card deployment.
+DIST_WORLD = 4
+DIST_DEVICE = "cuda"
+DIST_LLAMA = ("llama3.2-3b", 4, 8, 512, 3)      # arch, layers, B, S, timed steps
+DIST_GRANITE = ("granite-moe-3b-a800m", 4, 8, 512)
+DIST_FFN_TOKENS = 4096                           # granite's EP FFN, card against CPU
+DIST_PP_MICRO = 4
+DIST_FLASH = (("dist_llama_local", 4, HQ // 2, HKV // 2, 512, DH, True),)
+DIST_PP_TOL = 2e-3             # the reference's GPipe-vs-sequential bound
+# Each leaf's update after the steps, ||mesh - one process|| / ||one process||.
+# bf16 parameters: p - lr·u rounds to a bf16 step of 2^-14 near the init
+# scale d^-0.5 (2^-13 above 0.0156), against updates of a few lr (3e-4),
+# so half a step of rounding alone is ~0.2 of an update; a gradient that
+# the mesh got wrong moves whole leaves the other way.
+DIST_UPDATE_REL = 0.5
+# Each step's grad norm against the one-process run's, relative (the
+# first card run measured 0.18 %: bf16 gradients summed in another order).
+DIST_GNORM_REL = 0.01
+# The EP FFN, card against 4 CPU ranks: max |dy| over max |y| (bf16 grouped
+# products on the card, fp32 loops on the CPU; the first card run measured
+# 0.0234 of 3.344, 0.7 %), the bound the serve phase's MoE checks use.
+DIST_FFN_REL = 2.0 ** -6
+
+
+def time_collectives(torch, coll) -> dict:
+    """Wraps the collectives' transports (all-gather and all-to-all, which
+    every collective of a gloo group goes through, and the pipeline's send
+    and receive) so that each call's host seconds add up in the returned
+    dict. A stream sync before and after each call leaves the compute
+    queued before it outside: staging syncs there anyway (``.cpu()``)."""
+    spent = {"s": 0.0, "calls": 0}
+
+    def timed(fn):
+        def call(*args, **kw):
+            torch.cuda.current_stream().synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.current_stream().synchronize()
+            spent["s"] += time.perf_counter() - t0
+            spent["calls"] += 1
+            return out
+        return call
+
+    for name in ("_all_gather", "_all_to_all", "send", "recv"):
+        setattr(coll, name, timed(getattr(coll, name)))
+    return spent
+
+
+def ep_drops(torch, moe, calls) -> tuple[int, int]:
+    """(pairs, dropped) over the ``_moe_local`` calls a spy recorded, the
+    kept pairs recomputed from the expert ids each call took."""
+    pairs = dropped = 0
+    for c in calls:
+        keep = moe.kept_pairs(c.args[1], c.kwargs["cfg"], c.kwargs["n_data"], c.kwargs["e_pad"])
+        pairs += keep.numel()
+        dropped += int((~keep).sum())
+    return pairs, dropped
+
+
+def dist_share(torch, blocks, full_shapes, plan, dist) -> dict:
+    """This rank's bytes against the plan's share of the full tree (each
+    leaf's bytes over the product of its spec's axis sizes)."""
+    from repro_torch.models.convert import tree_leaves
+    local = share = full = 0
+    for t, shape, spec in zip(tree_leaves(blocks), tree_leaves(full_shapes), tree_leaves(plan)):
+        n = math.prod(shape) * t.element_size()
+        local += t.numel() * t.element_size()
+        share += n // math.prod(dist.axis_size(a) for a in spec)
+        full += n
+    return dict(local_bytes=local, plan_share_bytes=share, full_bytes=full)
+
+
+def dist_batches(torch, cfg, B: int, S: int, n: int) -> list:
+    """``n`` successive ``PackedBatcher`` batches on the card (the same on
+    every rank)."""
+    from repro_torch.data import PackedBatcher, SyntheticCorpus
+    batcher = PackedBatcher(SyntheticCorpus(cfg.vocab_size, seed=0), B, S)
+    return [{k: torch.from_numpy(v).to(DIST_DEVICE) for k, v in batcher.next_batch().items()}
+            for _ in range(n)]
+
+
+def dist_llama(torch, rank, dist, counters, spent) -> dict:
+    """llama3.2-3b at full width and DIST_LLAMA's layers on (data 2, model
+    2): the sharded loss and gathered gradients at init against the
+    one-process card run (rank 0), then timed train steps and the gathered
+    parameters after them against the one-process steps."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.sharding import gather_tree, shard_tree
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.convert import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    arch, layers, B, S, timed = DIST_LLAMA
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=DIST_DEVICE, dist=dist)
+    full = Model(cfg, device=DIST_DEVICE).init_params(0)
+    shapes = tree_map(lambda t: tuple(t.shape), full)
+    params = shard_tree(full, model.plan, dist)
+    del full
+    torch.cuda.empty_cache()
+    share = dist_share(torch, params, shapes, model.plan, dist)
+    require(share["local_bytes"] == share["plan_share_bytes"],
+            f"dist {arch} rank {rank}: blocks {share}")
+    batches = dist_batches(torch, cfg, B, S, timed)
+    opt_cfg = AdamWConfig(lr=3e-4, state_dtype=cfg.opt_state_dtype, warmup_steps=1,
+                          total_steps=timed)
+    opt = init_opt_state(params, opt_cfg, dist=dist, specs=model.plan)
+    step = make_train_step(model, opt_cfg)
+    t0 = time.perf_counter()
+    loss0, grads = step.grads(params, batches[0])
+    loss0 = float(loss0)
+    grads = gather_tree(tree_unflatten(params, grads), model.plan, dist)
+    torch.cuda.synchronize()
+    out = dict(share=share, loss=loss0, grads_s=time.perf_counter() - t0)
+    if rank == 0:
+        one = Model(cfg, device=DIST_DEVICE)
+        ref_params = one.init_params(0)
+        ref_loss, ref_grads = loss_and_grads(torch, one, ref_params, batches[0])
+        out.update(ref_loss=ref_loss, grad_errs=grad_errs(tree_leaves(grads), ref_grads))
+        del ref_grads
+    del grads
+    torch.cuda.empty_cache()
+    coll.all_reduce(torch.zeros(1, device=DIST_DEVICE), dist, ("data", "model"))   # a barrier
+    steps, flash = [], []
+    for batch in batches:
+        counters["flash_attention"].launches = 0
+        torch.cuda.synchronize()
+        c0, t0 = spent["s"], time.perf_counter()
+        m = step(params, opt, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        steps.append(((time.perf_counter() - t0) * 1e3, loss, gnorm,
+                      (spent["s"] - c0) * 1e3))
+        flash.append(counters["flash_attention"].launches)
+    out.update(step_ms=[s[0] for s in steps], losses=[s[1] for s in steps],
+               grad_norms=[s[2] for s in steps], coll_ms=[s[3] for s in steps],
+               flash_per_step=flash,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    after = gather_tree(params, model.plan, dist)
+    del params, opt, step
+    torch.cuda.empty_cache()
+    if rank == 0:
+        init = [t.detach().clone() for t in tree_leaves(one.init_params(0))]
+        one_step = make_train_step(one, opt_cfg)
+        ref_opt = init_opt_state(ref_params, opt_cfg)
+        ref = [tuple(float(v) for v in (m["loss"], m["grad_norm"]))
+               for m in (one_step(ref_params, ref_opt, b) for b in batches)]
+        rel = []
+        for p0, got, want in zip(init, tree_leaves(after), tree_leaves(ref_params)):
+            d_want = want.detach().float() - p0.float()
+            d_got = got.float() - p0.float()
+            rel.append(float((d_got - d_want).norm() / d_want.norm().clamp(min=1e-30)))
+        out.update(ref_losses=[r[0] for r in ref], ref_grad_norms=[r[1] for r in ref],
+                   update_rel=rel)
+        del init, ref_params, ref_opt, one_step
+    del after
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_granite(torch, rank, dist, spent) -> dict:
+    """granite-moe-3b-a800m at full width and DIST_GRANITE's layers on
+    (data 2, model 2), the forward loss through ``moe_ffn_ep`` (default
+    layout, ``rs_combine``): at capacity 8.0 no pair drops and the loss
+    is held against the one-process routed loss (rank 0); at the
+    config's 1.5 the drops are counted."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.sharding import shard_batch, shard_tree
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    arch, layers, B, S = DIST_GRANITE
+    base = dataclasses.replace(get_config(arch), n_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    full = Model(base, device=DIST_DEVICE).init_params(0)
+    batch = dist_batches(torch, base, B, S, 1)[0]
+    out = {}
+    for cf in (8.0, base.capacity_factor):
+        cfg = dataclasses.replace(base, capacity_factor=cf)
+        model = Model(cfg, device=DIST_DEVICE, dist=dist)
+        params = shard_tree(full, model.plan, dist)
+        torch.cuda.synchronize()
+        c0, t0 = spent["s"], time.perf_counter()
+        with torch.no_grad(), mock.patch.object(moe, "_moe_local", wraps=moe._moe_local) as spy:
+            loss = float(model.loss_fn(params, shard_batch(batch, cfg, dist))[0])
+        ms = (time.perf_counter() - t0) * 1e3
+        coll_ms = (spent["s"] - c0) * 1e3
+        require(len(spy.call_args_list) == layers,
+                f"dist {arch}: {len(spy.call_args_list)} EP calls in {layers} layers")
+        counts = torch.tensor(ep_drops(torch, moe, spy.call_args_list), dtype=torch.float32,
+                              device=DIST_DEVICE)
+        pairs, dropped = (int(v) for v in coll.all_reduce(counts, dist, dist.batch_axes))
+        row = dict(loss=loss, pairs=pairs, dropped=dropped, forward_ms=ms, coll_ms=coll_ms)
+        if rank == 0 and cf == 8.0:
+            with torch.no_grad():
+                row["ref_loss"] = float(Model(cfg, device=DIST_DEVICE).loss_fn(full, batch)[0])
+        out[cf] = row
+        del params
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del full
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_ffn_inputs(torch, device: str):
+    """granite's MoE FFN at full width (its experts, seeded on the CPU, the
+    same in every process) and DIST_FFN_TOKENS seeded bf16 rows. The
+    router favours data shard 0's experts (their columns scaled by 5: 87 % of
+    the pairs go to shard 0 at full width, against 75 % that fit): with
+    an even routing over two shards capacity 1.5 would drop nothing."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import init_moe
+    cfg = dataclasses.replace(get_config(DIST_GRANITE[0]), n_layers=1)
+    gen = torch.Generator()
+    gen.manual_seed(11)
+    p = init_moe(gen, cfg, "cpu")
+    p["router"][:, :cfg.n_experts // 2] *= 5.0
+    p = {k: t.to(device) for k, t in p.items()}
+    x = torch.randn((DIST_FFN_TOKENS, cfg.d_model), generator=gen).to(torch.bfloat16)
+    return cfg, p, x.to(device)
+
+
+def dist_ffn(torch, dist, device: str) -> dict:
+    """``moe_ffn_ep`` (default layout) at the config's capacity on this
+    rank's rows: the kept mask of the pairs it routed and the drops."""
+    from repro_torch.launch.sharding import param_plan, shard_tree
+    from repro_torch.models import moe
+    cfg, p, x = dist_ffn_inputs(torch, device)
+    pspec = param_plan(cfg, dist, training=True).params["layers"][0]["mlp"]
+    rows = x.shape[0] // (dist.n_pod * dist.n_data)
+    b = dist.coord(dist.batch_axes)
+    with torch.no_grad(), mock.patch.object(moe, "_moe_local", wraps=moe._moe_local) as spy:
+        y, _ = moe.moe_ffn_ep(x[b * rows:(b + 1) * rows], shard_tree(p, pspec, dist), cfg,
+                              dist, pspec=pspec)
+    (c,) = spy.call_args_list
+    keep = moe.kept_pairs(c.args[1], cfg, c.kwargs["n_data"], c.kwargs["e_pad"])
+    return dict(batch_shard=b, keep=keep.cpu().numpy(), dropped=int((~keep).sum()),
+                y=y.float().cpu().numpy())
+
+
+def dist_gpipe(torch, rank, dist, counters, spent) -> dict:
+    """llama3.2-3b at full width and DIST_LLAMA's layers as a GPipe over
+    pod 2 (data 1, model 2), DIST_PP_MICRO microbatches, against the
+    sequential one-process loss (rank 0)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.pipeline import make_pp_loss, pp_stack_specs, reshape_stack_for_pp
+    from repro_torch.launch.sharding import shard_tree
+    from repro_torch.models.model import Model
+    arch, layers, B, S, _ = DIST_LLAMA
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    model = Model(cfg, device=DIST_DEVICE, dist=dist)
+    full = Model(cfg, device=DIST_DEVICE).init_params(0)
+    batch = dist_batches(torch, cfg, B, S, 1)[0]
+    out = {}
+    if rank == 0:
+        with torch.no_grad():
+            out["seq_loss"] = float(Model(cfg, device=DIST_DEVICE).loss_fn(full, batch)[0])
+    pp = dict(full, layers=reshape_stack_for_pp(full["layers"], dist.n_pod))
+    specs = dict(model.plan, layers=pp_stack_specs(model.plan["layers"], dist.n_pod))
+    local = shard_tree(pp, specs, dist)
+    del full, pp
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    counters["flash_attention"].launches = 0
+    c0, t0 = spent["s"], time.perf_counter()
+    out["pp_loss"] = float(make_pp_loss(model, DIST_PP_MICRO)(local, batch)[0])
+    out["pp_ms"] = (time.perf_counter() - t0) * 1e3
+    out["coll_ms"] = (spent["s"] - c0) * 1e3
+    out["flash"] = counters["flash_attention"].launches
+    del local
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_rank(rank, world) -> dict:
+    """One rank of phase 11 on the card: llama training, granite's EP
+    loss and FFN on (data 2, model 2), then the GPipe on (pod 2, data 1,
+    model 2). Returns its measurements (rank 0 also the one-process
+    references)."""
+    import torch
+
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.context import Dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = {fn.__name__: fn for fn in ops.COUNTED}
+    dist = Dist.from_mesh(make_mesh((2, 2), ("data", "model"), DIST_DEVICE))
+    spent = time_collectives(torch, coll)
+    t0 = time.perf_counter()
+    out = dict(llama=dist_llama(torch, rank, dist, counters, spent))
+    out["granite"] = dist_granite(torch, rank, dist, spent)
+    out["ffn"] = dist_ffn(torch, dist, DIST_DEVICE)
+    pp = Dist.from_mesh(make_mesh((2, 1, 2), ("pod", "data", "model"), DIST_DEVICE))
+    out["gpipe"] = dist_gpipe(torch, rank, pp, counters, spent)
+    out["staged"] = dict(coll.STAGED)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def dist_ffn_cpu_rank(rank, world) -> dict:
+    """The same EP FFN as ``dist_ffn`` on a CPU gloo rank."""
+    import torch
+
+    from repro_torch.distributed.context import Dist
+    from repro_torch.launch.mesh import make_mesh
+    torch.set_num_threads(2)
+    return dist_ffn(torch, Dist.from_mesh(make_mesh((2, 2), ("data", "model"), "cpu")),
+                    "cpu")
+
+
+def run_dist_phase(torch, dev, counters) -> dict:
+    """Phase 11 (see the module docstring)."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import launch_ranks
+    kernels = check_train_kernels(torch, dev, flash_shapes=DIST_FLASH, scan_shapes=())
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        ranks = launch_ranks(dist_rank, DIST_WORLD, backend="gloo", device="cuda",
+                             timeout=600)
+        t1 = time.perf_counter()
+        cpu = launch_ranks(dist_ffn_cpu_rank, DIST_WORLD, backend="gloo", device="cpu",
+                           timeout=300)
+    except (RuntimeError, TimeoutError) as exc:
+        raise SmokeFailure(f"dist: {exc}") from exc
+    t2 = time.perf_counter()
+    r0 = ranks[0]
+    # llama: loss, gradients, steps
+    ll = r0["llama"]
+    arch, layers, B, S, timed = DIST_LLAMA
+    require(all(r["llama"]["loss"] == ll["loss"] for r in ranks),
+            f"dist {arch}: the ranks' losses differ {[r['llama']['loss'] for r in ranks]}")
+    require(abs(ll["loss"] - ll["ref_loss"]) <= TRAIN_LOSS_TOL,
+            f"dist {arch}: sharded loss {ll['loss']} vs one process {ll['ref_loss']}")
+    require(max(ll["grad_errs"]) <= TRAIN_CPU_REL,
+            f"dist {arch}: gathered gradient errors {ll['grad_errs']} past {TRAIN_CPU_REL}")
+    require(all(math.isfinite(x) for x in ll["losses"] + ll["grad_norms"]),
+            f"dist {arch}: non-finite losses {ll['losses']} or grad norms {ll['grad_norms']}")
+    require(max(abs(a - b) for a, b in zip(ll["losses"], ll["ref_losses"])) <= TRAIN_LOSS_TOL,
+            f"dist {arch}: step losses {ll['losses']} vs one process {ll['ref_losses']}")
+    gnorm_rel = [abs(a - b) / b for a, b in zip(ll["grad_norms"], ll["ref_grad_norms"])]
+    require(max(gnorm_rel) <= DIST_GNORM_REL,
+            f"dist {arch}: grad norms {ll['grad_norms']} vs one process "
+            f"{ll['ref_grad_norms']} (relative {gnorm_rel}, bound {DIST_GNORM_REL})")
+    require(max(ll["update_rel"]) <= DIST_UPDATE_REL,
+            f"dist {arch}: parameter updates after {timed} steps differ from the one "
+            f"process's by {ll['update_rel']} (bound {DIST_UPDATE_REL})")
+    from repro_torch.configs import get_config
+    remat = 2 if get_config(arch).remat in ("dots", "full") else 1
+    require(all(f == layers * remat for r in ranks for f in r["llama"]["flash_per_step"]),
+            f"dist {arch}: flash_attention launches a step per rank "
+            f"{[r['llama']['flash_per_step'] for r in ranks]}, not {layers} x {remat}")
+    step_p50 = [statistics.median(r["llama"]["step_ms"]) for r in ranks]
+    log_card(f"dist {arch}: {layers} layers at full width, bf16, (data 2, model 2) over "
+             f"gloo, 4 ranks on one card, B {B} x S {S}: sharded loss {ll['loss']:.5f} vs "
+             f"one process {ll['ref_loss']:.5f} (tolerance {TRAIN_LOSS_TOL}); gathered "
+             f"grad rel err per leaf max {max(ll['grad_errs']):.4f} (bound {TRAIN_CPU_REL}); "
+             f"{timed} steps: losses {[round(x, 4) for x in ll['losses']]} vs one process "
+             f"{[round(x, 4) for x in ll['ref_losses']]}, grad norms "
+             f"{[round(x, 4) for x in ll['grad_norms']]} vs "
+             f"{[round(x, 4) for x in ll['ref_grad_norms']]} (relative max "
+             f"{max(gnorm_rel):.5f}, bound {DIST_GNORM_REL}); gathered parameters' update "
+             f"rel err per leaf max {max(ll['update_rel']):.4f} (bound {DIST_UPDATE_REL}); "
+             f"step ms per rank {[[round(x, 1) for x in r['llama']['step_ms']] for r in ranks]}"
+             f" (p50 per rank {[round(x, 1) for x in step_p50]}), of which in the staged "
+             f"collectives (host clock, a stream sync before and after each) "
+             f"{[[round(x, 1) for x in r['llama']['coll_ms']] for r in ranks]}; "
+             f"flash_attention launches "
+             f"a step per rank {ll['flash_per_step']} ({layers} layers x {remat}, remat "
+             f"dots); peak GiB per rank {[round(r['llama']['peak_gib'], 2) for r in ranks]} "
+             f"(rank 0 also holds the one-process run); blocks {ll['share']['local_bytes']:,} "
+             f"bytes a rank = the plan's share {ll['share']['plan_share_bytes']:,} of "
+             f"{ll['share']['full_bytes']:,}; first loss + gathered grads "
+             f"{ll['grads_s']:.1f} s")
+    # granite: EP loss, drops
+    gr = r0["granite"]
+    g_arch, g_layers, gB, gS = DIST_GRANITE
+    no_drop, cfg_cf = gr[8.0], [k for k in gr if k not in (8.0, "peak_gib")][0]
+    require(no_drop["dropped"] == 0, f"dist {g_arch}: capacity 8.0 dropped {no_drop}")
+    require(abs(no_drop["loss"] - no_drop["ref_loss"]) <= TRAIN_LOSS_TOL,
+            f"dist {g_arch}: EP loss {no_drop['loss']} vs one-process routed "
+            f"{no_drop['ref_loss']}")
+    require(all(r["granite"][k]["loss"] == gr[k]["loss"] for r in ranks for k in (8.0, cfg_cf)),
+            f"dist {g_arch}: the ranks' losses differ")
+    ffn = {r["ffn"]["batch_shard"]: r["ffn"] for r in ranks}
+    ffn_cpu = {r["batch_shard"]: r for r in cpu}
+    card_drop = sum(f["dropped"] for f in ffn.values())
+    cpu_drop = sum(f["dropped"] for f in ffn_cpu.values())
+    same_keep = all(np.array_equal(ffn[b]["keep"], ffn_cpu[b]["keep"]) for b in ffn)
+    y_err = max(float(np.abs(ffn[b]["y"] - ffn_cpu[b]["y"]).max()) for b in ffn)
+    y_max = max(float(np.abs(ffn_cpu[b]["y"]).max()) for b in ffn)
+    require(card_drop == cpu_drop and same_keep and card_drop > 0,
+            f"dist {g_arch} EP FFN at capacity {cfg_cf}: the card dropped {card_drop} pairs, "
+            f"the CPU {cpu_drop} (kept masks equal: {same_keep})")
+    require(y_err <= DIST_FFN_REL * y_max,
+            f"dist {g_arch} EP FFN: max |y card - y CPU| {y_err} past {DIST_FFN_REL} of "
+            f"max |y| {y_max}")
+    log_card(f"dist {g_arch}: {g_layers} layers at full width, bf16, (data 2, model 2), "
+             f"B {gB} x S {gS}, forward through moe_ffn_ep (default layout, rs_combine): "
+             f"capacity 8.0 loss {no_drop['loss']:.5f} vs one-process routed "
+             f"{no_drop['ref_loss']:.5f} (tolerance {TRAIN_LOSS_TOL}), dropped "
+             f"{no_drop['dropped']} of {no_drop['pairs']} pairs, forward "
+             f"{no_drop['forward_ms']:.1f} ms (rank 0; in the staged collectives "
+             f"{no_drop['coll_ms']:.1f}); capacity {cfg_cf} loss "
+             f"{gr[cfg_cf]['loss']:.5f}, dropped {gr[cfg_cf]['dropped']} of "
+             f"{gr[cfg_cf]['pairs']} pairs; peak GiB per rank "
+             f"{[round(r['granite']['peak_gib'], 2) for r in ranks]}")
+    log_card(f"dist {g_arch} EP FFN, one layer's experts at full width, {DIST_FFN_TOKENS} "
+             f"seeded bf16 rows, capacity {cfg_cf}: card dropped {card_drop} pairs, the same "
+             f"run on 4 CPU gloo ranks {cpu_drop}; kept masks equal {same_keep}; max |y card "
+             f"- y CPU| {y_err:.4g} (max |y| {y_max:.4g}, bound {DIST_FFN_REL} of it; the "
+             f"card's grouped products are bf16)")
+    # GPipe
+    gp = r0["gpipe"]
+    require(all(r["gpipe"]["pp_loss"] == gp["pp_loss"] for r in ranks),
+            f"dist gpipe: the ranks' losses differ")
+    require(all(r["gpipe"]["flash"] == layers // 2 * DIST_PP_MICRO for r in ranks),
+            f"dist gpipe: flash_attention launches per rank {[r['gpipe']['flash'] for r in ranks]}")
+    require(abs(gp["pp_loss"] - gp["seq_loss"]) <= DIST_PP_TOL,
+            f"dist gpipe {arch}: pipeline loss {gp['pp_loss']} vs sequential "
+            f"{gp['seq_loss']} (bound {DIST_PP_TOL})")
+    log_card(f"dist gpipe {arch}: {layers} layers at full width over (pod 2, data 1, model "
+             f"2), {DIST_PP_MICRO} microbatches of B {B // DIST_PP_MICRO} x S {S}: loss "
+             f"{gp['pp_loss']:.6f} vs sequential one process {gp['seq_loss']:.6f} (|diff| "
+             f"{abs(gp['pp_loss'] - gp['seq_loss']):.2e}, bound {DIST_PP_TOL}); forward "
+             f"ms per rank {[round(r['gpipe']['pp_ms'], 1) for r in ranks]}, of which in the "
+             f"staged transfers {[round(r['gpipe']['coll_ms'], 1) for r in ranks]}; "
+             f"flash_attention "
+             f"launches per rank {[r['gpipe']['flash'] for r in ranks]} (each stage's "
+             f"{layers // 2} layers x {DIST_PP_MICRO} microbatches)")
+    log(f"dist: gloo staged through host memory (calls per rank 0, by operation): "
+        f"{r0['staged']}; the card ranks {t1 - t0:.1f} s (rank 0's work "
+        f"{r0['seconds']:.1f} s), the CPU ranks {t2 - t1:.1f} s")
+    return dict(kernels=kernels, launches=sum(sum(r["llama"]["flash_per_step"]) for r in ranks),
+                per_step=ll["flash_per_step"][0])
+
+
 KERNELS = {
     "frontier_hop": ("src/repro_torch/csrc/frontier_hop.cu",
                      "src/repro/kernels/frontier_hop.py:182"),
@@ -3540,7 +4036,7 @@ KERNEL_WRAPPERS = {"scatter_rows": ("scatter_flush", "scatter_rows")}
 
 
 PHASES = ("build", "kernels", "index", "main", "parity", "shard", "sim", "serve",
-          "encdec_vlm", "train")
+          "encdec_vlm", "train", "dist")
 
 
 def main(argv: list[str]) -> int:
@@ -3600,7 +4096,7 @@ def main(argv: list[str]) -> int:
             log(f"phase parity: {time.perf_counter() - t0:.1f} s")
         if "shard" in phases:
             t0 = time.perf_counter()
-            sharded = run_shard_path(torch, counters, steps=400)
+            sharded = run_shard_path(torch, counters, steps=200, long_steps=400)
             log_card(f"phase shard: {time.perf_counter() - t0:.1f} s; launches of the 4-shard "
                 f"card runs {sharded}")
         if "sim" in phases:
@@ -3638,6 +4134,10 @@ def main(argv: list[str]) -> int:
             t0 = time.perf_counter()
             trained = run_train_phase(torch, dev, counters)
             log_card(f"phase train: {time.perf_counter() - t0:.1f} s")
+        if "dist" in phases:
+            t0 = time.perf_counter()
+            distributed = run_dist_phase(torch, dev, counters)
+            log_card(f"phase dist: {time.perf_counter() - t0:.1f} s")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3650,6 +4150,7 @@ def main(argv: list[str]) -> int:
     replayed.update({k: served[arch]["replay_launches"][k]
                      for k, arch in SERVE_KERNELS.items()})
     numbers.update(trained["kernels"])   # the training shapes ride under "variants"
+    numbers.update(distributed["kernels"])   # and a rank's local heads
     fields = ("max_abs_err", "ms", "earlier_ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms", "entry_set_ms", "earlier_entry_set_ms", "entry_set_bound_ms",
               "floor_ms", "earlier_floor_ms", "per_table_ms", "splits", "chunk", "chunk_ms",
@@ -3676,6 +4177,9 @@ def main(argv: list[str]) -> int:
             row["train"] = {run["arch"]: {"launches": run["launches"][name],
                                           "per_step": run["launches_per_step"][name]}
                             for run in trained["runs"] if name in run["launches"]}
+        if name == "flash_attention":   # phase dist: 4 ranks' timed llama steps
+            row["dist"] = {"launches": distributed["launches"],
+                           "per_step_per_rank": distributed["per_step"]}
         if name in sharded:       # the cache kernels on the sharded and simulator paths
             row["shard"], row["sim"] = sharded[name], simulated[name]
         variants = {"_".join(k[1:]): {f: v[f] for f in fields if f in v}

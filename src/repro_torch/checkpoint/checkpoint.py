@@ -15,9 +15,16 @@ tree (the port's one dict per layer) is stored under its indices
 ("layers/0/mix/wq") and comes back as a list: a dict whose keys are
 exactly "0" … "n-1" is read as one.
 
-``restore_checkpoint`` places every leaf on the given device (the port's
-counterpart of the reference's elastic re-placement under a mesh's
-shardings: one card, or the CPU).
+``restore_checkpoint`` places every leaf on the given device. With
+``plan=`` (a spec tree like the checkpoint's tree: the training plan for
+"params", ``opt_plan``'s for "opt") and ``dist=`` it restores onto the
+current mesh, each rank taking its blocks (``launch.sharding.shard_tree``):
+the counterpart of the reference's ``shardings=`` elastic re-placement.
+Every rank reads the whole file and keeps its blocks. A mesh run saves
+the gathered full leaves (``launch.sharding.gather_tree``, rank 0
+writes), so the format is the one-process one: a checkpoint written by
+one process restores onto a mesh, and one written on a mesh into one
+process, bit for bit.
 
 ``AsyncCheckpointer.save`` copies every tensor to host memory before it
 returns, and a writer thread persists the copy. The optimizer updates
@@ -147,10 +154,11 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, step: int | None = None, device=None
-                       ) -> tuple[dict, dict, int]:
+def restore_checkpoint(ckpt_dir: str, step: int | None = None, device=None, *,
+                       plan: dict | None = None, dist=None) -> tuple[dict, dict, int]:
     """Returns (tree, extras, step), every leaf a tensor on ``device``
-    (None: the card)."""
+    (None: the card): the whole leaf, or under ``plan`` and a mesh
+    ``dist`` this rank's block of it."""
     device = resolve_device(device)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -160,9 +168,16 @@ def restore_checkpoint(ckpt_dir: str, step: int | None = None, device=None
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     with np.load(os.path.join(path, "arrays.npz")) as npz:
-        flat = {leaf: _to_tensor(npz[leaf], meta["dtype"], device)
+        flat = {leaf: _to_tensor(npz[leaf], meta["dtype"], "cpu" if plan else device)
                 for leaf, meta in manifest["leaves"].items()}
-    return _unflatten(flat), manifest["extras"], step
+    tree = _unflatten(flat)
+    if plan is not None:
+        from repro_torch.launch.sharding import shard_tree
+        from repro_torch.models.convert import tree_map
+        if dist is not None and dist.mesh is not None:
+            tree = shard_tree(tree, plan, dist)
+        tree = tree_map(lambda t: t.to(device), tree)
+    return tree, manifest["extras"], step
 
 
 class AsyncCheckpointer:

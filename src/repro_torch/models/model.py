@@ -47,6 +47,27 @@ family's input raises ``ValueError`` naming it (the reference raises
 ``KeyError``). A decode step raises ``ValueError`` where ``kv_len`` has
 reached the cache's length, where the reference's ``.at[].set`` drops the
 new K/V silently.
+
+Under a mesh (``Model(cfg, dist=Dist.from_mesh(mesh))``, one process a
+rank) ``loss_fn`` takes this rank's parameter blocks in the training
+plan's layout (``launch.sharding.param_plan(..., training=True)``,
+``self.plan``) and this rank's rows of the batch
+(``launch.sharding.shard_batch``), and gives the reference's global loss:
+the mean over every unmasked label of every batch shard, plus the global
+MoE aux. Its value is that global loss on every rank; its gradient is
+this rank's term of it (its tokens' nll over the global count, its aux
+term), so the train step's backward on each rank, reduced over the batch
+axes as the plan says (``launch/steps.py``), gives the global gradient.
+The embedding and the head follow the plan: vocab over ``model``, d over
+``data`` gathered per call. The cross-entropy is vocab-parallel: each
+model rank scores its vocab slice of every chunk in fp32, the max and
+the sum of exponentials are reduced over ``model`` (the max outside
+autograd, where it cancels), and so is the label's logit, which only its
+slice's rank holds; the head is never gathered over ``model``. Under a
+mesh the dense and moe families are supported; ssm, hybrid, encdec and
+vlm raise ``NotImplementedError`` (ROADMAP queue 1 item 7), as do
+``prefill`` and ``decode_step`` (sharded serving, item 6).
+``Dist.single()`` and None keep the one-process path for every family.
 """
 
 from __future__ import annotations
@@ -56,6 +77,8 @@ from dataclasses import dataclass, field, replace
 import torch
 
 from repro_torch.core.hnsw import resolve_device
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.context import Dist, P
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import dtype_of, normal, rms_norm
@@ -82,14 +105,39 @@ EXTRA_INPUT = {"encdec": ("audio", "(B, enc_ctx, enc_dim) frame embeddings"),
                "vlm": ("patches", "(B, n_patches, d_model) patch embeddings")}
 
 
+# The families a mesh runs (the others: ROADMAP queue 1 item 7).
+MESH_FAMILIES = ("dense", "moe")
+
+
 @dataclass
 class Model:
     cfg: ArchConfig
     device: str | torch.device | None = None
+    dist: Dist | None = None
     _head_f32: tuple | None = field(default=None, repr=False)
+    _plan: dict | None = field(default=None, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if self.dist is None:
+            self.dist = Dist.single()
+
+    @property
+    def meshed(self) -> bool:
+        return self.dist.mesh is not None
+
+    @property
+    def plan(self) -> dict:
+        """The training plan's spec tree (``launch.sharding.param_plan``)."""
+        if self._plan is None:
+            from repro_torch.launch.sharding import param_plan
+            self._plan = param_plan(self.cfg, self.dist, training=True).params
+        return self._plan
+
+    def _unmeshed(self, what: str) -> None:
+        if self.meshed:
+            raise NotImplementedError(f"{self.cfg.name}: {what} under a mesh is not "
+                                      f"ported yet (ROADMAP queue 1 item 6: sharded serving)")
 
     # ------------------------------------------------------------- params
     def init_params(self, seed: int | torch.Generator = 0) -> dict:
@@ -97,7 +145,9 @@ class Model:
         the model's device from ``seed`` (an int or a torch.Generator)."""
         cfg, dev = self.cfg, self.device
         gen = seed
-        if not isinstance(seed, torch.Generator):
+        if dev.type == "meta":          # shapes only (the sharding plan's tree)
+            gen = None
+        elif not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=dev)
             gen.manual_seed(int(seed))
         dt = dtype_of(cfg)
@@ -127,10 +177,32 @@ class Model:
         return tf.init_cache(self.cfg, batch, max_len, self.device)
 
     def _embed_tokens(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        x = params["embed"][tokens.long()]
+        """The tokens' rows of the embedding. Under a mesh vocab-parallel:
+        each model rank fills the rows of its vocab slice, the others zero,
+        summed over ``model`` (exact)."""
+        w, start, axis = self._vocab_slice(params, "embed")
+        if axis is None:
+            x = w[tokens.long()]
+        else:
+            local = tokens.long() - start
+            inside = (local >= 0) & (local < w.shape[0])
+            x = w[local.clamp(0, w.shape[0] - 1)] * inside[..., None].to(w.dtype)
+            x = coll.reduce_from(x, self.dist, axis)
         if self.cfg.final_softcap is not None:   # gemma-style embed scaling
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
         return x
+
+    def _vocab_slice(self, params, name: str):
+        """(this rank's rows of the embed / head, d whole; its first vocab
+        row; the axis the vocab splits over, None where it is whole: without
+        a mesh, or where the plan does not split it)."""
+        if not self.meshed:
+            return params[name], 0, None
+        dist, M = self.dist, self.dist.model_axis
+        spec = self.plan[name]
+        axis = M if len(spec) > 0 and spec[0] == M else None
+        w = coll.fetch(params[name], spec, P(axis, None), dist)
+        return w, (dist.coord(M) * w.shape[0] if axis else 0), axis
 
     def _encode(self, params, audio: torch.Tensor) -> torch.Tensor:
         """Whisper's encoder on precomputed frame embeddings (B, enc_ctx,
@@ -194,8 +266,14 @@ class Model:
         family's input: audio (B, enc_ctx, enc_dim) [encdec], patches (B,
         P, d) [vlm]. Returns (total loss, {"xent", "aux", "tokens"}), fp32
         scalars on the model's device: total = xent + router_aux_weight ·
-        aux, xent the mean over unmasked labels."""
-        cfg = self.cfg
+        aux, xent the mean over unmasked labels. Under a mesh: this rank's
+        blocks and rows (see the module's docstring); the reductions over
+        the batch axes are the identity without one."""
+        cfg, dist = self.cfg, self.dist
+        if self.meshed and cfg.family not in MESH_FAMILIES:
+            raise NotImplementedError(f"{cfg.name}: the {cfg.family} family under a mesh "
+                                      f"is not ported yet (ROADMAP queue 1 item 7; the mesh runs "
+                                      f"{', '.join(MESH_FAMILIES)})")
         extra = self._extra_input(batch)
         tokens = batch["tokens"].to(self.device)
         labels = batch["labels"].to(self.device)
@@ -211,38 +289,56 @@ class Model:
             positions = torch.arange(x.shape[1], device=self.device)
             pad = torch.full(patches.shape[:2], -1, dtype=labels.dtype, device=self.device)
             labels = torch.cat([pad, labels], dim=1)
-        x, aux = tf.stack_apply(x, params["layers"], cfg, mode="train",
-                                positions=positions, enc_kv=enc_kv)
+        x, aux = tf.stack_apply(x, params["layers"], cfg, dist, mode="train",
+                                positions=positions, enc_kv=enc_kv,
+                                specs=self.plan["layers"] if self.meshed else None)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        xent, n_tok = self._chunked_xent(params, x, labels)
-        total = xent + cfg.router_aux_weight * aux
-        return total, {"xent": xent, "aux": aux, "tokens": n_tok}
+        nll, cnt = self._chunked_xent(params, x, labels)
+        axes = dist.batch_axes                   # None without a mesh: no reduction
+        n_tok = coll.all_reduce(cnt, dist, axes)
+        xent = nll / n_tok.clamp(min=1.0)
+        mine = xent + cfg.router_aux_weight * aux
+        # the global loss's value, this rank's term's gradient (one process: its own)
+        total = coll.all_reduce(mine, dist, axes) + (mine - mine.detach())
+        return total, {"xent": coll.all_reduce(xent, dist, axes),
+                       "aux": coll.all_reduce(aux, dist, axes), "tokens": n_tok}
 
     def _chunked_xent(self, params, x: torch.Tensor, labels: torch.Tensor):
-        """Mean cross-entropy over labels >= 0, ``cfg.loss_chunk`` positions
-        at a time (one chunk if it does not divide S), so the (B, S, Vp)
-        fp32 logits never exist at once. Returns (mean, count)."""
-        cfg = self.cfg
+        """Summed cross-entropy over labels >= 0 and their count (fp32),
+        ``cfg.loss_chunk`` positions at a time (one chunk if it does not
+        divide S), so the (B, S, Vp) fp32 logits never exist at once. Under
+        a mesh this rank's rows, vocab-parallel: each model rank scores its
+        vocab slice of a chunk, and the max, the sum of exponentials and
+        the label's logit (which only its slice's rank holds) are reduced
+        over ``model``; the max outside autograd, where it cancels."""
+        cfg, dist = self.cfg, self.dist
+        head, start, axis = self._vocab_slice(params, "head")
+        head = head.to(torch.float32)
+        vmask = (start + torch.arange(head.shape[0], device=x.device)) < cfg.vocab_size
+        x = coll.copy_to(x, dist, axis)
         B, S, d = x.shape
         chunk = min(cfg.loss_chunk, S)
         if S % chunk:
             chunk = S
-        head = params["head"].to(torch.float32)
-        vmask = torch.arange(head.shape[0], device=x.device) < cfg.vocab_size
         nll = torch.zeros((), dtype=torch.float32, device=x.device)
         cnt = torch.zeros((), dtype=torch.float32, device=x.device)
         for off in range(0, S, chunk):
             xc, lc = x[:, off:off + chunk], labels[:, off:off + chunk]
-            logits = xc.to(torch.float32) @ head.T                       # (B, c, Vp)
+            logits = xc.to(torch.float32) @ head.T                       # (B, c, V_loc)
             if cfg.final_softcap is not None:
                 logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
             logits = torch.where(vmask, logits, -1e30)
-            logp = torch.log_softmax(logits, dim=-1)
-            take = logp.gather(-1, lc.clamp(min=0).long()[..., None])[..., 0]
+            lab = lc.clamp(min=0).long() - start
+            own = (lab >= 0) & (lab < head.shape[0])
+            tgt = logits.gather(-1, lab.clamp(0, head.shape[0] - 1)[..., None])[..., 0]
+            tgt = coll.reduce_from(torch.where(own, tgt, 0.0), dist, axis)
+            mx = coll.all_reduce(logits.amax(dim=-1), dist, axis, op="max")
+            se = coll.reduce_from(torch.exp(logits - mx[..., None]).sum(dim=-1), dist, axis)
+            take = tgt - mx - torch.log(se)
             mask = (lc >= 0).to(torch.float32)
             nll = nll + (-take * mask).sum()
             cnt = cnt + mask.sum()
-        return nll / cnt.clamp(min=1.0), cnt
+        return nll, cnt
 
     def _logits_last(self, params, x_last: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -258,6 +354,7 @@ class Model:
         logits (B, Vp) fp32, cache, kv_len (B,) int32). Chunked at
         ``cfg.prefill_chunk`` when it divides S (a Mamba layer's state
         carries from chunk to chunk)."""
+        self._unmeshed("prefill")
         cfg = self.cfg
         extra = self._extra_input(batch)
         tokens = batch["tokens"].to(self.device)
@@ -288,6 +385,7 @@ class Model:
                     kv_len: torch.Tensor):
         """One token per sequence: tokens (B,), kv_len (B,) int32. Writes
         the cache in place; returns (logits (B, Vp), cache, kv_len + 1)."""
+        self._unmeshed("decode_step")
         cfg = self.cfg
         _check_room(cache, kv_len)
         x = self._dec_inputs(params, tokens[:, None], kv_len[:, None])

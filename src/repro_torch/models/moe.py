@@ -46,6 +46,29 @@ so no copy of the weights is made.
 The reference's ``_ragged_dot`` custom VJP works around a jax 0.4.x
 cotangent dtype bug in training; it has no counterpart here.
 
+Expert parallelism (``moe_ffn_ep``, under a mesh): the reference's
+``_moe_local`` per rank, with the collectives written out. Experts are
+padded to a multiple of ``n_data`` (``padded_experts``; padding logits
+-1e30) and owned by ``data`` shards. Each rank routes its own tokens;
+the Switch aux loss is the reference's global one (expert counts summed
+over the token shards, mean probabilities over all tokens), returned as
+this rank's term (its tokens' share of the probability mean), whose sum
+over the token shards is the aux. Per destination shard the (token,
+choice) pairs are stable-sorted, the first ``_capacity`` kept and the
+rest dropped (the reference's order and ``slot`` arithmetic), tokens and
+expert ids go to their owners by ``all_to_all`` over ``data``, the
+owner's grouped products run on its local experts (the invalid rows in
+one more group of zero weights, so every row belongs to a group), the
+down products' partial sums over ``model`` are all-reduced or, with
+``rs_combine``, reduce-scattered over d, the rows go back by
+``all_to_all`` and are combined per token in fp32. Two layouts, as the
+reference's: by default the tokens are this rank's (pod, data) rows,
+replicated over ``model``, and each expert's FFN width splits over
+``model``; ``token_parallel`` (``d_ff_expert < 128 · n_model``) splits
+the rows over ``model`` as well and runs full-width experts. The drops
+depend on the routing alone: ``kept_pairs`` gives them from a rank's
+expert ids, for callers that count them; the FFN keeps no record.
+
 Training: on the CPU the whole FFN, the Switch aux loss included, is
 differentiable (the loop's products, the sort's values, the index ops).
 On the card the backward needs one of ``torch._grouped_mm``, which a
@@ -58,29 +81,45 @@ it where there is none, rather than switch to the loop.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.context import P
 
-def route(x: torch.Tensor, router_w: torch.Tensor, cfg
-          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Top-k routing. x (T, d) -> ids (T, k) int32, weights (T, k) fp32
-    (renormalised over the k), aux load-balancing loss (scalar, Switch).
 
-    Ties go to the lower expert, as ``lax.top_k`` breaks them: a stable
-    descending sort of the E probabilities, first k taken (``torch.topk``
-    promises no order among equals)."""
+def _top_k(x, router_w, cfg, e_pad: int):
+    """(probs (T, e_pad), ids (T, k), weights (T, k) renormalised). Ties
+    go to the lower expert, as ``lax.top_k`` breaks them: a stable
+    descending sort of the probabilities, first k taken (``torch.topk``
+    promises no order among equals). Padding experts score -1e30, as the
+    reference's."""
     k = cfg.moe_top_k
     logits = x.to(torch.float32) @ router_w.to(torch.float32)          # (T, E)
+    if e_pad > logits.shape[-1]:
+        logits = F.pad(logits, (0, e_pad - logits.shape[-1]), value=-1e30)
     probs = torch.softmax(logits, dim=-1)
     weights, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, ids = weights[:, :k], ids[:, :k]
     weights = weights / weights.sum(dim=-1, keepdim=True).clamp(min=1e-9)
-    # Switch aux loss: E · Σ_e f_e · P_e (serving discards it).
+    return probs, ids, weights
+
+
+def _expert_counts(ids: torch.Tensor, e_pad: int) -> torch.Tensor:
+    counts = torch.zeros(e_pad, dtype=torch.float32, device=ids.device)
+    return counts.scatter_add_(0, ids.reshape(-1), torch.ones(ids.numel(), device=ids.device))
+
+
+def route(x: torch.Tensor, router_w: torch.Tensor, cfg
+          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-k routing (``_top_k``). x (T, d) -> ids (T, k) int32, weights
+    (T, k) fp32 (renormalised over the k), aux load-balancing loss
+    (scalar, Switch: E · Σ_e f_e · P_e; serving discards it)."""
+    probs, ids, weights = _top_k(x, router_w, cfg, router_w.shape[-1])
     E = probs.shape[-1]
-    f = torch.zeros(E, dtype=torch.float32, device=x.device)
-    f.scatter_add_(0, ids.reshape(-1), torch.ones(ids.numel(), device=x.device))
+    f = _expert_counts(ids, E)
     f = f / f.sum().clamp(min=1.0)
     aux = E * torch.sum(f * probs.mean(dim=0))
     return ids.to(torch.int32), weights, aux
@@ -92,6 +131,10 @@ def moe_ffn_dense_exact(x: torch.Tensor, p: dict, cfg
     x (T, d) -> (y (T, d) in x's dtype, aux). One expert at a time, so
     only one expert's weights are held in fp32 at once."""
     ids, weights, aux = route(x, p["router"], cfg)
+    return _dense_combine(x, ids, weights, p, cfg), aux
+
+
+def _dense_combine(x, ids, weights, p: dict, cfg) -> torch.Tensor:
     xf = x.to(torch.float32)
     combine = torch.zeros(x.shape[0], cfg.n_experts, dtype=torch.float32,
                           device=x.device)
@@ -101,7 +144,7 @@ def moe_ffn_dense_exact(x: torch.Tensor, p: dict, cfg
         g = xf @ p["w_gate"][e].to(torch.float32)
         u = xf @ p["w_up"][e].to(torch.float32)
         y += combine[:, e:e + 1] * ((F.silu(g) * u) @ p["w_down"][e].to(torch.float32))
-    return y.to(x.dtype), aux
+    return y.to(x.dtype)
 
 
 def grouped_mm(rows: torch.Tensor, w: torch.Tensor, offs: torch.Tensor
@@ -182,9 +225,200 @@ def moe_ffn_routed(x: torch.Tensor, p: dict, cfg
     return y.to(x.dtype), aux
 
 
-def moe_apply(x: torch.Tensor, p: dict, cfg) -> tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) or (T, d) -> (y of x's shape, aux), through the routed
-    path."""
+def padded_experts(n_experts: int, n_data: int) -> int:
+    return int(math.ceil(n_experts / n_data) * n_data)
+
+
+def _capacity(t_loc: int, top_k: int, n_data: int, factor: float) -> int:
+    c = int(math.ceil(t_loc * top_k / n_data * factor))
+    return max(8, ((c + 7) // 8) * 8)
+
+
+def _route_global(x, router_w, cfg, e_pad: int, dist, token_axes):
+    """``route`` over this rank's tokens with the global aux loss: ids,
+    weights, and this rank's term of the aux (summing to it over
+    ``token_axes``): expert counts summed over the token shards, the
+    probability mean over all their tokens."""
+    E = cfg.n_experts
+    probs, ids, weights = _top_k(x, router_w, cfg, e_pad)
+    counts = coll.all_reduce(_expert_counts(ids, e_pad), dist, token_axes)
+    f = counts / counts.sum().clamp(min=1.0)
+    t_global = x.shape[0] * dist.axis_size(token_axes)
+    aux = E * torch.sum(f[:E] * probs[:, :E].sum(dim=0) / t_global)
+    return ids.to(torch.int32), weights, aux
+
+
+def _dispatch(ids: torch.Tensor, e_loc: int, n_data: int, C: int):
+    """The reference's dispatch order of one rank's (token, choice) pairs
+    (ids (T_loc, k), in that order): a stable sort by owner shard, the
+    first C of each shard kept, the rest dropped. Returns (order, the
+    sorted pairs' keep mask, their send slot: owner · C + position, or
+    n_data · C, a spare row, where dropped)."""
+    flat_ids = ids.reshape(-1).long()                            # (N = T_loc·k,)
+    dest = torch.div(flat_ids, e_loc, rounding_mode="floor")    # owner shard
+    order = torch.sort(dest, stable=True).indices
+    s_dest = dest[order]
+    starts = torch.searchsorted(s_dest, torch.arange(n_data, device=ids.device))
+    pos = torch.arange(flat_ids.shape[0], device=ids.device) - starts[s_dest]
+    keep = pos < C                                               # drop overflow
+    slot = torch.where(keep, s_dest * C + pos, n_data * C)      # OOB → dropped
+    return order, keep, slot
+
+
+def kept_pairs(ids: torch.Tensor, cfg, n_data: int, e_pad: int) -> torch.Tensor:
+    """Which of one rank's (token, choice) pairs (ids (T_loc, k), the ids
+    ``_moe_local`` takes) expert parallelism keeps at ``cfg``'s capacity:
+    (T_loc, k) bool."""
+    T_loc, k = ids.shape
+    C = _capacity(T_loc, k, n_data, cfg.capacity_factor)
+    order, keep, _ = _dispatch(ids, e_pad // n_data, n_data, C)
+    return torch.empty_like(keep).index_copy_(0, order, keep).view(T_loc, k)
+
+
+def _moe_local(x, ids, weights, w_gate, w_up, w_down, *, cfg, n_data: int, e_pad: int,
+               dist, model_axis: str | None, rs_combine: bool = False):
+    """Per rank: x (T_loc, d); expert blocks w_gate / w_up (E_loc, d,
+    ff_loc), w_down (E_loc, ff_loc, d). Returns y (T_loc, d_out) in x's
+    dtype, d_out = d / n_model with ``rs_combine``."""
+    T_loc, d = x.shape
+    k = cfg.moe_top_k
+    e_loc = e_pad // n_data
+    dev = x.device
+    my = dist.coord(dist.data_axis)
+    C = _capacity(T_loc, k, n_data, cfg.capacity_factor)
+    order, keep, slot = _dispatch(ids, e_loc, n_data, C)
+    flat_ids = ids.reshape(-1).long()
+    flat_w = weights.reshape(-1)
+    s_tok = torch.div(order, k, rounding_mode="floor")          # each pair's token
+    s_eid = flat_ids[order]
+
+    # One spare row takes every dropped pair; it is cut off before sending.
+    send_tok = x.new_zeros((n_data * C + 1, d)).index_put((slot,), x[s_tok])[:-1]
+    send_eid = torch.full((n_data * C + 1,), -1, dtype=torch.long, device=dev)
+    send_eid = send_eid.index_put((slot,), s_eid)[:-1]
+
+    # all_to_all over data: shard i's block j → shard j's block i.
+    recv_tok = coll.all_to_all(send_tok, dist, dist.data_axis)
+    recv_eid = coll.all_to_all(send_eid, dist, dist.data_axis)
+
+    # Local expert compute: rows grouped by local expert, the invalid ones
+    # (empty slots) last, in one more group of zero weights.
+    leid = recv_eid - my * e_loc
+    invalid = (recv_eid < 0) | (leid < 0) | (leid >= e_loc)
+    leid = torch.where(invalid, e_loc, leid)
+    s_leid, g_order = torch.sort(leid, stable=True)
+    rows = recv_tok[g_order]
+    offs = torch.searchsorted(s_leid, torch.arange(e_loc + 1, device=dev),
+                              right=True).to(torch.int32)
+    spare = (0, 0, 0, 0, 0, 1)
+    h = grouped_mm(rows, F.pad(w_gate.to(rows.dtype), spare), offs)
+    u = grouped_mm(rows, F.pad(w_up.to(rows.dtype), spare), offs)
+    hidden = (F.silu(h.to(torch.float32)) * u.to(torch.float32)).to(x.dtype)
+    part = grouped_mm(hidden, F.pad(w_down.to(hidden.dtype), spare), offs).to(torch.float32)
+    if model_axis is not None:
+        if rs_combine:      # (M, d) partials → this rank's (M, d / n_model) sums
+            part = coll.reduce_scatter(part, 1, dist, model_axis)
+        else:
+            part = coll.reduce_from(part, dist, model_axis)      # ffn partials
+
+    # Unsort, return to senders, weighted combine.
+    part = part.to(x.dtype)
+    unsorted = torch.zeros_like(part).index_copy(0, g_order, part)
+    back = coll.all_to_all(unsorted, dist, dist.data_axis)
+    contrib = back[slot.clamp(max=n_data * C - 1)]               # (N, d_out)
+    contrib = torch.where(keep[:, None], contrib.to(torch.float32), 0.0)
+    y = torch.zeros((T_loc, contrib.shape[1]), dtype=torch.float32, device=dev)
+    y = y.index_add(0, s_tok, contrib * flat_w[order][:, None])
+    return y.to(x.dtype)
+
+
+def _experts(p: dict, ps: dict, cfg, dist, e_pad: int, ff_axis, *, model_replica: bool):
+    """This rank's expert blocks in the compute layout: experts (padded to
+    ``e_pad``) over ``data``, the FFN width over ``ff_axis``, from their
+    stored layout."""
+    out = []
+    for name, ff_dim in (("w_gate", 2), ("w_up", 2), ("w_down", 1)):
+        want = [dist.data_axis, None, None]
+        want[ff_dim] = ff_axis
+        t = p[name]
+        if e_pad == cfg.n_experts:
+            t = coll.fetch(t, ps[name], P(*want), dist, model_replica=model_replica)
+        else:
+            want[0] = None
+            t = coll.fetch(t, ps[name], P(*want), dist, model_replica=model_replica)
+            t = F.pad(t, (0, 0, 0, 0, 0, e_pad - cfg.n_experts))
+            t = coll.split(t, 0, dist, dist.data_axis, gather_grad=False)
+        out.append(t)
+    return out
+
+
+def moe_ffn_ep(x: torch.Tensor, p: dict, cfg, dist, token_parallel: bool = False, *,
+               pspec: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE. x (T_loc, d): this rank's (pod, data) rows,
+    replicated over ``model``; ``p`` this rank's blocks, stored as
+    ``pspec`` says. Returns (y (T_loc, d), this rank's aux term).
+
+    Default layout: each expert's FFN width splits over ``model``, the
+    down products' partials reduce-scattered over d (``rs_combine``,
+    where d divides) or all-reduced. ``token_parallel``: the rows split
+    over ``model`` too, full-width experts, no model-axis reduction."""
+    n_data, M = dist.n_data, dist.model_axis
+    e_pad = padded_experts(cfg.n_experts, n_data)
+    router = coll.fetch(p["router"], pspec["router"], P(), dist)
+    ids, weights, aux = _route_global(x, router, cfg, e_pad, dist, dist.batch_axes)
+    kw = dict(cfg=cfg, n_data=n_data, e_pad=e_pad, dist=dist)
+
+    if token_parallel and dist.n_model > 1:
+        w = _experts(p, pspec, cfg, dist, e_pad, None, model_replica=False)
+        xs = coll.split(x, 0, dist, M, gather_grad=True)
+        ws = coll.split(weights, 0, dist, M, gather_grad=True)
+        ids_s = ids.narrow(0, dist.coord(M) * xs.shape[0], xs.shape[0])
+        y = _moe_local(xs, ids_s, ws, *w, model_axis=None, **kw)
+        return coll.gather(y, 0, dist, M, sum_grad=False), aux
+
+    if dist.n_model > 1 and cfg.d_ff_expert % dist.n_model:
+        raise ValueError(f"{cfg.name}: d_ff_expert {cfg.d_ff_expert} does not split "
+                         f"over model {dist.n_model}")
+    w = _experts(p, pspec, cfg, dist, e_pad, M, model_replica=True)
+    rs = dist.n_model > 1 and cfg.d_model % dist.n_model == 0
+    xin = coll.copy_to(x, dist, M)
+    win = coll.copy_to(weights, dist, M) if rs else weights
+    y = _moe_local(xin, ids, win, *w, model_axis=M if dist.n_model > 1 else None,
+                   rs_combine=rs, **kw)
+    if rs:
+        y = coll.gather(y, 1, dist, M, sum_grad=False)
+    return y, aux
+
+
+def _moe_dense_dist(x, p, ps, cfg, dist):
+    """Under a mesh where EP does not apply (one data shard, or tokens
+    that do not split): every expert on this rank's tokens, the weights
+    gathered whole, the reference's global aux."""
+    router = coll.fetch(p["router"], ps["router"], P(), dist)
+    ids, weights, aux = _route_global(x, router, cfg, cfg.n_experts, dist, dist.batch_axes)
+    full = {k: coll.fetch(p[k], ps[k], P(), dist) for k in ("w_gate", "w_up", "w_down")}
+    return _dense_combine(x, ids, weights, full, cfg), aux
+
+
+def moe_apply(x: torch.Tensor, p: dict, cfg, dist=None, *, pspec: dict | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) or (T, d) -> (y of x's shape, aux). Without a mesh the
+    routed path. Under a mesh (``p`` this rank's blocks, ``pspec`` their
+    specs, x this rank's rows) the reference's dispatch: EP, token-
+    parallel for small experts (``d_ff_expert < 128 · n_model``), where
+    there is more than one data shard and the global tokens split over the
+    token shards; every expert on every token otherwise. aux is then this
+    rank's term of the global aux (``moe_ffn_ep``)."""
     shape = x.shape
-    y, aux = moe_ffn_routed(x.reshape(-1, shape[-1]), p, cfg)
+    x2 = x.reshape(-1, shape[-1])
+    if dist is None or dist.mesh is None:
+        y, aux = moe_ffn_routed(x2, p, cfg)
+        return y.reshape(shape), aux
+    tp = dist.n_model > 1 and cfg.d_ff_expert < 128 * dist.n_model
+    tok_shards = dist.n_pod * dist.n_data * (dist.n_model if tp else 1)
+    t_global = x2.shape[0] * dist.n_pod * dist.n_data
+    if dist.n_data > 1 and t_global % tok_shards == 0:
+        y, aux = moe_ffn_ep(x2, p, cfg, dist, token_parallel=tp, pspec=pspec)
+    else:
+        y, aux = _moe_dense_dist(x2, p, pspec, cfg, dist)
     return y.reshape(shape), aux

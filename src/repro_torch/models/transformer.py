@@ -42,6 +42,36 @@ reference's ``checkpoint_dots``) and recomputes the rest. The
 attention and scan kernels are not matrix products to the policy, so
 both run again in the recompute: a second real launch each. Remat moves
 memory, never results.
+
+Under a mesh (``dist``, train mode, the dense and moe families: the
+model facade refuses the others) every layer takes its parameters as
+this rank's blocks in the training plan's layout (``launch/sharding.py``,
+the layer's specs as ``pspec``) and computes with explicit collectives
+(``distributed/collectives.py``), Megatron's tensor parallelism over
+``model`` and FSDP over ``data``. The functions are those of one device:
+without a mesh every collective is the identity and the weights are
+taken as they are (``_tp_weights``).
+
+* the FSDP dims (d_model over ``data``) are gathered per layer, inside
+  remat, so the recompute gathers again, and their gradients are
+  reduce-scattered back into the blocks;
+* attention: ``wq`` / ``wk`` / ``wv`` column-split over ``model`` (local
+  heads Hq / n_model and Hkv / n_model, ``flash_attention`` on them),
+  ``wo`` row-split, the partial outputs all-reduced over ``model``. Where
+  the heads (Hq or Hkv) do not divide the model axis (the plan's
+  "replicated" note), attention runs replicated over it: every model rank
+  gathers the whole projections and computes every head. That is the
+  reference's math: its ``_seq_shard`` splits the query sequence over
+  ``model`` in that case, which changes where attention runs, not what it
+  computes; the port does not split the sequence;
+* the dense MLP: ``w_gate`` / ``w_up`` column-split, ``w_down`` row-split,
+  an all-reduce over ``model``; replicated where d_ff does not divide;
+* the MoE FFN: expert parallelism (``moe.moe_apply``).
+
+The reference's ``_constrain`` pins the residual stream to the batch axes
+for GSPMD; with explicit collectives the layout is what the code makes it,
+so it has no counterpart. Its ``lax.scan`` over groups is the loop over
+layers, as without a mesh.
 """
 
 from __future__ import annotations
@@ -52,6 +82,8 @@ from dataclasses import dataclass
 import torch
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.context import P
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
@@ -73,6 +105,18 @@ def layer_pattern(cfg) -> list[SubLayerSpec]:
     return [SubLayerSpec(kind=kinds[i], mlp=mlps[i], window=cfg.window_for_layer(i),
                          cross=(cfg.family == "encdec"))
             for i in range(cfg.n_layers)]
+
+
+def layer_groups(cfg) -> tuple[list[SubLayerSpec], int]:
+    """The reference's minimal repeating group of layers and its count
+    (the port loops over layers; the sharding plan names the reference's
+    group-stacked paths)."""
+    pat = layer_pattern(cfg)
+    L = len(pat)
+    for p in range(1, L + 1):
+        if L % p == 0 and all(pat[i] == pat[i % p] for i in range(L)):
+            return pat[:p], L // p
+    return pat, 1
 
 
 # ---------------------------------------------------------------------------
@@ -133,16 +177,42 @@ def init_cache(cfg, batch: int, max_len: int, device, dtype=None) -> dict:
 # Sublayers.
 # ---------------------------------------------------------------------------
 
+def _split_on(spec: P, dim: int, axis: str) -> bool:
+    return len(spec) > dim and spec[dim] == axis
+
+
+def _tp_weights(block: dict, pblock: dict | None, dist, cols, rows):
+    """A tensor-parallel region's weights and the axis its partial sums
+    reduce over. Without a mesh (``pblock`` None) the block itself and
+    None. Under one, the weights brought from their stored layout (specs
+    ``pblock``) to the compute one: ``cols`` split over ``model`` on dim 1
+    and ``rows`` on dim 0 where every one of ``cols`` is stored so (the
+    axis ``model``), whole where one is not (the plan's "replicated" note:
+    every model rank computes the whole region, None)."""
+    if pblock is None:
+        return block, None
+    M = dist.model_axis
+    axis = M if all(_split_on(pblock[k], 1, M) for k in cols) else None
+    want = {**{k: P(None, axis) for k in cols}, **{k: P(axis) for k in rows}}
+    return {k: coll.fetch(block[k], pblock[k], want[k], dist) for k in want}, axis
+
+
 def attn_sublayer(x, sp, cfg, spec: SubLayerSpec, *, mode: str, positions,
-                  cache_k=None, cache_v=None, kv_len=None, kv_offset: int = 0):
+                  cache_k=None, cache_v=None, kv_len=None, kv_offset: int = 0,
+                  dist=None, pspec=None):
     """x (B, S, d) -> x + attention. ``cache_k``/``cache_v`` are this
-    layer's (B, S_max, Hkv, dh) cache, written in place (prefill, decode)."""
-    h = rms_norm(x, sp["ln_mix"], cfg.norm_eps)
+    layer's (B, S_max, Hkv, dh) cache, written in place (prefill, decode).
+    Under a mesh (train mode; ``pspec`` the layer's specs) local heads
+    where Hq and Hkv both divide ``model``, replicated over it otherwise
+    (``_tp_weights``)."""
+    w, axis = _tp_weights(sp["mix"], pspec and pspec["mix"], dist,
+                          ("wq", "wk", "wv"), ("wo",))
+    h = coll.copy_to(rms_norm(x, sp["ln_mix"], cfg.norm_eps), dist, axis)
     # By family, as the reference: whisper's decoder (encdec) is not roped,
     # but its encoder runs under a "dense" config (``Model._enc_cfg``) and
     # so takes RoPE at cfg.rope_theta on top of its additive sinusoid.
     theta = cfg.rope_theta if cfg.family != "encdec" else None
-    q, k, v = attn.qkv_project(h, sp["mix"], positions, theta)
+    q, k, v = attn.qkv_project(h, w, positions, theta)
 
     if mode == "decode":
         # The new token's K/V go into row kv_len[b] of each sequence, in
@@ -152,7 +222,7 @@ def attn_sublayer(x, sp, cfg, spec: SubLayerSpec, *, mode: str, positions,
         cache_v[bidx, kv_len] = v[:, 0].to(cache_v.dtype)
         out = attn.attend_decode(q[:, 0], cache_k, cache_v, kv_len + 1,
                                  window=spec.window, softcap=cfg.attn_softcap)
-        return x + attn.out_project(out, sp["mix"])[:, None, :].to(x.dtype)
+        return x + attn.out_project(out, w)[:, None, :].to(x.dtype)
 
     if mode == "prefill":
         # In-place write of this chunk's K/V at its offset (the reference's
@@ -166,7 +236,7 @@ def attn_sublayer(x, sp, cfg, spec: SubLayerSpec, *, mode: str, positions,
             v = cache_v[:, :kv_offset + S].to(q.dtype)
     out = attn.attend_prefill(q, k, v, causal=spec.causal, window=spec.window,
                               softcap=cfg.attn_softcap, kv_offset=kv_offset)
-    return x + attn.out_project(out, sp["mix"]).to(x.dtype)
+    return x + coll.reduce_from(attn.out_project(out, w), dist, axis).to(x.dtype)
 
 
 def cross_sublayer(x, sp, cfg, enc_k, enc_v):
@@ -194,23 +264,32 @@ def mamba_sublayer(x, sp, cfg, *, state=None, fresh: bool = False):
     return x + out.to(x.dtype)
 
 
-def sublayer_apply(x, sp, cfg, spec: SubLayerSpec, *, mode: str, positions,
+def sublayer_apply(x, sp, cfg, spec: SubLayerSpec, dist=None, *, mode: str, positions,
                    cache=None, slot: int = 0, kv_len=None, kv_offset: int = 0,
-                   enc_kv=None):
+                   enc_kv=None, pspec=None):
     """One layer: its mixer, its cross-attention if it has one, then its
     MLP if it has one -> (x, aux), aux its MoE load-balancing loss (fp32,
     0 without experts). ``cache`` is the whole stacked cache and ``slot``
     the layer's index into its kind's tensors (``cache_slots``; an encdec
     decoder layer's index into ``ck``/``cv`` too, every layer of it being
     attention). In train mode an encdec layer's cross K/V come as
-    ``enc_kv`` = (k, v), each (B, enc_ctx, Hkv, dh)."""
+    ``enc_kv`` = (k, v), each (B, enc_ctx, Hkv, dh). Under a mesh
+    (``dist`` with a mesh: train mode, attention layers) ``sp`` holds this
+    rank's blocks and ``pspec`` their specs; aux is then this rank's term
+    of the global loss (``moe.moe_apply``)."""
+    meshed = dist is not None and dist.mesh is not None
+    if meshed and (pspec is None or mode != "train" or spec.kind != "attn" or spec.cross):
+        raise NotImplementedError(f"{cfg.name}: under a mesh the port runs train-mode "
+                                  f"attention layers only (a {spec.kind} layer in "
+                                  f"{mode} mode; ROADMAP queue 1 items 6-7)")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.kind == "attn":
         ck = cv = None
         if cache is not None:
             ck, cv = cache["k"][slot], cache["v"][slot]
         x = attn_sublayer(x, sp, cfg, spec, mode=mode, positions=positions,
-                          cache_k=ck, cache_v=cv, kv_len=kv_len, kv_offset=kv_offset)
+                          cache_k=ck, cache_v=cv, kv_len=kv_len, kv_offset=kv_offset,
+                          dist=dist, pspec=pspec)
     else:
         state = None
         if cache is not None:
@@ -222,12 +301,16 @@ def sublayer_apply(x, sp, cfg, spec: SubLayerSpec, *, mode: str, positions,
     elif spec.cross and enc_kv is not None:
         x = cross_sublayer(x, sp, cfg, *enc_kv)
     if spec.mlp == "dense":
-        h = rms_norm(x, sp["ln_mlp"], cfg.norm_eps)
-        x = x + swiglu(h, sp["mlp"]["w_gate"], sp["mlp"]["w_up"],
-                       sp["mlp"]["w_down"]).to(x.dtype)
+        # SwiGLU: w_gate / w_up columns over ``model``, w_down rows, where
+        # d_ff divides it (``_tp_weights``)
+        w, axis = _tp_weights(sp["mlp"], pspec and pspec["mlp"], dist,
+                              ("w_gate", "w_up"), ("w_down",))
+        h = coll.copy_to(rms_norm(x, sp["ln_mlp"], cfg.norm_eps), dist, axis)
+        y = swiglu(h, w["w_gate"], w["w_up"], w["w_down"])
+        x = x + coll.reduce_from(y, dist, axis).to(x.dtype)
     elif spec.mlp == "moe":
         h = rms_norm(x, sp["ln_mlp"], cfg.norm_eps)
-        y, aux = moe_mod.moe_apply(h, sp["mlp"], cfg)
+        y, aux = moe_mod.moe_apply(h, sp["mlp"], cfg, dist, pspec=pspec and pspec["mlp"])
         x = x + y.to(x.dtype)
     return x, aux
 
@@ -250,24 +333,29 @@ def _remat(layer_fn, x, remat: str):
     raise ValueError(f"remat must be none, dots or full, not {remat!r}")
 
 
-def stack_apply(x, layers: list[dict], cfg, *, mode: str, positions, cache=None,
-                kv_len=None, kv_offset: int = 0, pattern=None, enc_kv=None):
+def stack_apply(x, layers: list[dict], cfg, dist=None, *, mode: str, positions,
+                cache=None, kv_len=None, kv_offset: int = 0, pattern=None, enc_kv=None,
+                specs=None):
     """Run every layer over x. ``cache`` (``init_cache``'s dict) is updated
     in place in prefill and decode modes, which return x; train mode takes
     none and returns (x, aux), aux the summed MoE load-balancing loss,
     each layer under ``cfg.remat``. ``enc_kv`` (train mode, encdec) holds
     each layer's cross (k, v). ``pattern`` (default ``layer_pattern(cfg)``)
     gives each layer's spec: whisper's encoder passes non-causal attention
-    layers."""
+    layers. Under a mesh (``dist``, train mode) ``layers`` are this rank's
+    blocks and ``specs`` their specs (the plan's ``"layers"``)."""
     if pattern is None:
         pattern = layer_pattern(cfg)
     if mode == "train":
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, (sp, spec) in enumerate(zip(layers, pattern)):
             layer_fn = functools.partial(
-                sublayer_apply, sp=sp, cfg=cfg, spec=spec, mode=mode, positions=positions,
-                enc_kv=None if enc_kv is None else enc_kv[i])
+                sublayer_apply, sp=sp, cfg=cfg, spec=spec, dist=dist, mode=mode,
+                positions=positions, enc_kv=None if enc_kv is None else enc_kv[i],
+                pspec=None if specs is None else specs[i])
             x, aux = _remat(layer_fn, x, cfg.remat)
+            # (the reference's _constrain goes here: under explicit
+            # collectives x is already this rank's rows, nothing to pin)
             aux_total = aux_total + aux
         return x, aux_total
     for sp, spec, slot in zip(layers, pattern, cache_slots(pattern)):

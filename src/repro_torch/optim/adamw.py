@@ -19,6 +19,17 @@ one leaf's temporaries. The arithmetic is the reference's, operation for
 operation, in fp32 (the clip scale applied to the fp32 gradient, as
 JAX's bf16 × fp32 promotion does), and ``torch.round`` rounds half to
 even as ``jnp.round`` does.
+
+Under a mesh the parameters are this rank's blocks (the training plan's
+specs) and so are the moments: ``init_opt_state`` of the blocks is the
+reference's ``opt_plan`` layout, the int8 block scales included, as long
+as each block's last dim holds whole 128-wide blocks (where it does not,
+the state cannot be quantized per rank and ``init_opt_state`` raises).
+The update is elementwise, so it runs on the blocks as they are; the
+clip's ``global_norm`` counts every element once: each leaf's local sum
+of squares is reduced over the axes that leaf is sharded on, and over no
+other (a norm scale replicated over ``model`` holds the same values on
+every model rank and is counted once).
 """
 
 from __future__ import annotations
@@ -28,6 +39,8 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.context import axis_names
 from repro_torch.models.convert import tree_leaves, tree_map, tree_zip
 
 QBLOCK = 128
@@ -145,30 +158,52 @@ def _moment_write(mo: dict, val: torch.Tensor) -> None:
     s.copy_(s_new)
 
 
-def init_opt_state(params, cfg: AdamWConfig) -> dict:
+def init_opt_state(params, cfg: AdamWConfig, *, dist=None, specs=None) -> dict:
     """{"step": int32 scalar, "m", "v": moment trees shaped like params},
-    on the params' device."""
+    on the params' device. Under a mesh (``dist``, ``specs`` the params'
+    spec tree) the params are blocks, and int8 moments need whole 128-wide
+    blocks in each."""
     dev = tree_leaves(params)[0].device
+    if cfg.state_dtype == "int8" and dist is not None and dist.mesh is not None:
+        for p, spec in zip(tree_leaves(params), tree_leaves(specs)):
+            n = dist.axis_size(spec[-1]) if p.dim() and len(spec) == p.dim() else 1
+            if p.dim() and (p.shape[-1] * n) % QBLOCK == 0 and p.shape[-1] % QBLOCK:
+                raise ValueError(f"int8 moments: a block of last dim {p.shape[-1]} "
+                                 f"(of {p.shape[-1] * n}) splits a {QBLOCK}-wide "
+                                 f"quantization block")
     return {"step": torch.zeros((), dtype=torch.int32, device=dev),
             "m": tree_map(lambda p: _moment_init(p, cfg.state_dtype, "m"), params),
             "v": tree_map(lambda p: _moment_init(p, cfg.state_dtype, "v"), params)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's fp32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.to(F32)))
-                          for leaf in tree_leaves(tree)))
+def global_norm(tree, *, dist=None, specs=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's fp32 sum of squares.
+    Under a mesh (``specs`` the blocks' spec tree) each leaf's local sum
+    is reduced over the axes it is sharded on, one reduction per set of
+    axes."""
+    leaves = tree_leaves(tree)
+    if dist is None or dist.mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(leaf.to(F32))) for leaf in leaves))
+    by_axes: dict = {}
+    for leaf, spec in zip(leaves, tree_leaves(specs)):
+        axes = tuple(a for a in dist.mesh.mesh_dim_names
+                     if any(a in axis_names(e) for e in spec))
+        by_axes[axes] = by_axes.get(axes, 0.0) + torch.sum(torch.square(leaf.to(F32)))
+    return torch.sqrt(sum(coll.all_reduce(part, dist, axes) if axes else part
+                          for axes, part in sorted(by_axes.items())))
 
 
 @torch.no_grad()
-def apply_adamw(params, grads, state: dict, cfg: AdamWConfig) -> dict:
+def apply_adamw(params, grads, state: dict, cfg: AdamWConfig, *, dist=None,
+                specs=None) -> dict:
     """One AdamW step, IN PLACE: ``params`` and ``state`` are updated;
     ``grads`` is a tree like ``params`` (any float dtypes). Returns the
-    metrics {"grad_norm", "lr"} as fp32 scalar tensors (no host sync)."""
+    metrics {"grad_norm", "lr"} as fp32 scalar tensors (no host sync).
+    Under a mesh: blocks, ``specs`` their spec tree (``global_norm``)."""
     state["step"] += 1
     step = state["step"].to(F32)
     lr = cfg.lr_at(state["step"])
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, dist=dist, specs=specs)
     scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)

@@ -59,9 +59,27 @@ def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.obs, "
             "repro_torch.kernels.ops, repro_torch.models, repro_torch.configs, "
             "repro_torch.serving, repro_torch.launch.serve, "
-            "repro_torch.distributed.fault, repro_torch.models.convert; "
+            "repro_torch.distributed.fault, repro_torch.models.convert, "
+            "repro_torch.distributed.context, repro_torch.distributed.collectives, "
+            "repro_torch.launch.mesh, repro_torch.launch.sharding, "
+            "repro_torch.launch.pipeline, repro_torch.launch.steps, "
+            "repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_collectives_and_mesh_touch_no_cuda_at_import():
+    """The distribution layer's transport modules load nothing of CUDA:
+    no CUDA context, no kernel library (the card is a rank's business)."""
+    code = ("import sys, torch, repro_torch.distributed.collectives, "
+            "repro_torch.launch.mesh; "
+            "bad = [m for m in sys.modules if m.startswith('repro_torch.kernels')]; "
+            "print(bad, torch.cuda.is_initialized()); "
+            "sys.exit(1 if bad or torch.cuda.is_initialized() else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
