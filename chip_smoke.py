@@ -2,7 +2,7 @@
 """Drive repro_torch's main path on one CUDA card and check it.
 
     python3 chip_smoke.py [--phases build,kernels,index,main,parity,shard,sim,serve,
-                                    encdec_vlm,train,dist]
+                                    encdec_vlm,train,dist,dist_serve]
 
 Run from the root of a checkout: it puts ``src/`` on ``sys.path`` itself,
 builds the CUDA kernels into ``build/repro_torch/`` with ``nvcc`` (sm_90a)
@@ -218,6 +218,38 @@ Phases (any failure exits non-zero and prints no result):
              of max |y|. Then a GPipe of the 4-layer
              llama on (pod 2, data 1, model 2), 4 microbatches, within
              2e-3 of the sequential loss. Logs the calls gloo staged.
+12. dist_serve — sharded serving, four gloo ranks on the one card, (data
+             2, model 2), seeded bf16 weights in the serving plan. First
+             decode_attention on 4 sequence blocks of a cache (the
+             sequence-sharded layout; ``first_row`` and ``return_lse``) at
+             llama's serve shape and at 32,768 rows with a window of 4,096:
+             each block against the plain version, the blocks merged
+             (``merge_partials``) against one call over every row and the
+             plain version, one block timed; mamba_scan at Dm 4,096 (a
+             model rank's channels). Then the meshed engine
+             (``run_serving(dist=...)``): rank 0's HNSW cache in front of
+             llama3.2-3b at full width and depth, 64 Table-1 requests,
+             batch <= 8, prompt 64, 16 new tokens (odd miss batches take
+             the sequence-sharded cache), generation eager (gloo stages
+             through host, so no graph): its counters equal the
+             one-process engine's on the same requests, every rank ends
+             with the same tokens, every step's logits within 0.1 of the
+             one-process model teacher-forced on the engine's tokens and
+             every greedy token that differs a near tie. Then, at full
+             width with the depth cut for the time limit (granite-moe 4
+             layers, falcon-mamba 4, whisper 4 + 4, llava 4 at B 2 with
+             2,880 patches, jamba's 8-layer period, each rank drawing its
+             blocks a layer at a time), a prefill of 64 and 4 decode steps
+             at B 8 and 3 against the one-process card run within 0.1, MoE
+             choices forced onto its (own choices that differ near ties)
+             at capacity 8.0, where EP drops nothing (one process has no
+             capacity), each MoE layer's dispatch equal to the reference's
+             rule, the drops at the config's capacity counted from the same
+             routing. Last, one sharded falcon-mamba-7b train step
+             (4 layers, B 8 x S 128) against one process: loss within 0.1,
+             each gradient leaf within 0.1 of its largest. Logs per rank
+             prefill and decode ms, peak GiB, the staged transfers' count
+             and ms by operation, the launches per call.
 
 The last lines are a ``{"kernels": [...]}`` object (``launches``: those
 made at wrapper calls in the run of the kernel's path; ``replay_launches``:
@@ -227,8 +259,9 @@ in the 4-shard card runs of phase 7, with ``per_shard`` replays (delta
 flushes for scatter_rows), and in the hybrid card runs of phase 8; for
 the model kernels ``serve``, the same two counts in each served model's
 run that launched it, ``encdec_vlm``, those of phase 9's runs, and
-``train``, those of phase 10's timed steps, and for flash_attention
-``dist``, those of phase 11's ranks' timed steps), the
+``train``, those of phase 10's timed steps, for flash_attention
+``dist``, those of phase 11's ranks' timed steps, and ``dist_serve``,
+those of phase 12's meshed serving summed over its ranks), the
 card's name and power limit from nvidia-smi, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -3580,21 +3613,25 @@ def time_collectives(torch, coll) -> dict:
     and receive) so that each call's host seconds add up in the returned
     dict. A stream sync before and after each call leaves the compute
     queued before it outside: staging syncs there anyway (``.cpu()``)."""
-    spent = {"s": 0.0, "calls": 0}
+    spent = {"s": 0.0, "calls": 0, "by_op": {}}
 
-    def timed(fn):
+    def timed(name, fn):
         def call(*args, **kw):
             torch.cuda.current_stream().synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kw)
             torch.cuda.current_stream().synchronize()
-            spent["s"] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            spent["s"] += dt
             spent["calls"] += 1
+            op = spent["by_op"].setdefault(name.strip("_"), [0, 0.0])
+            op[0] += 1
+            op[1] += dt * 1e3
             return out
         return call
 
     for name in ("_all_gather", "_all_to_all", "send", "recv"):
-        setattr(coll, name, timed(getattr(coll, name)))
+        setattr(coll, name, timed(name, getattr(coll, name)))
     return spent
 
 
@@ -4001,6 +4038,708 @@ def run_dist_phase(torch, dev, counters) -> dict:
                 per_step=ll["flash_per_step"][0])
 
 
+# ---------------------------------------------------------------- phase 12
+# Sharded serving: four gloo ranks on the one card, (data 2, model 2),
+# seeded bf16 weights in the serving plan (``Model.serve_plan``). As in
+# phase 11 the staged transfers make the times no four-card deployment's.
+DS_ENGINE = ("llama3.2-3b", 64, 8, 64, 16)   # arch, requests, max batch, prompt, new tokens
+# arch, decoder layers, encoder layers (whisper), batches: the depth cut for
+# the time limit, full width
+DS_MODELS = (("granite-moe-3b-a800m", 4, 0, (8, 3)), ("falcon-mamba-7b", 4, 0, (8, 3)),
+             ("whisper-large-v3", 4, 4, (8, 3)), ("llava-next-mistral-7b", 4, 0, (2,)),
+             ("jamba-v0.1-52b", 8, 0, (8, 3)))
+DS_PROMPT, DS_STEPS = 64, 4
+DS_TRAIN = ("falcon-mamba-7b", 4, 8, 128)     # arch, layers, B, S
+# decode_attention on sequence blocks: label, B, S, least kv_len, window
+DS_DECODE = (("serve_seq4", 8, 80, 65, None), ("decode_32k_seq4_w4096", 8, 32768, 1, WINDOW))
+DS_BLOCKS = 4
+DS_SCAN_DM = DI // 2           # a model rank's channels of falcon-mamba-7b's 8,192
+DS_SCAN = (("serve_prefill_dm4096", 8, 64, False), ("serve_decode_dm4096", 8, 1, True))
+LSE_REL = 1e-4                 # the kernel's lse against the plain one (fp32 sums)
+
+
+def ds_merge_close(torch, got, want, what: str) -> float:
+    """The merge of fp32 partials, rounded to bf16 once, against one call
+    (bf16) or the plain version (bf16): one bf16 step (``attn_close``)."""
+    return attn_close(torch, got.to(want.dtype), want, what=what)
+
+
+def ds_kernels(torch, dev) -> dict:
+    """decode_attention on DS_BLOCKS sequence blocks of a cache (the
+    sequence-sharded layout of ``cache_specs``: ``first_row`` and
+    ``return_lse``, fp32 partials): each block's (out, lse) against the
+    plain version on it, the blocks merged by ``merge_partials`` and
+    rounded to bf16 once against one kernel call over every row and
+    against the plain version; one block timed beside
+    its plain version and SDPA on it (SDPA returns no lse). mamba_scan at
+    Dm 4,096, a model rank's channels of falcon-mamba-7b, against its
+    plain version (the serve prefill and decode step)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.models.attention import merge_partials
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2039)
+    out = {}
+    dtype = torch.bfloat16
+    for label, B, S, lo, window in DS_DECODE:
+        torch.cuda.empty_cache()
+        q = torch.randn((B, HQ, DH), generator=gen, device=dev).to(dtype)
+        kc = torch.randn((B, S, HKV, DH), generator=gen, device=dev).to(dtype)
+        vc = torch.randn((B, S, HKV, DH), generator=gen, device=dev).to(dtype)
+        lens = torch.randint(lo, S + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
+        lens[0], lens[1] = S, 0
+        k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+        n = S // DS_BLOCKS
+        blocks, parts, lses, err, lse_err = [], [], [], 0.0, 0.0
+        for i in range(DS_BLOCKS):
+            first = torch.full((B,), i * n, dtype=torch.int32, device=dev)
+            args = (q, k[:, :, i * n:(i + 1) * n], v[:, :, i * n:(i + 1) * n], lens)
+            o, lse = da.decode_attention(*args, window=window, first_row=first,
+                                         return_lse=True)
+            po, plse = da.decode_attention_plain(*args[:3], kv_len=lens, window=window,
+                                                 first_row=first, return_lse=True)
+            err = max(err, attn_close(torch, o, po, what=f"decode_attention {label} block {i}"))
+            require(torch.equal(torch.isinf(lse), torch.isinf(plse)),
+                    f"decode_attention {label} block {i}: lse -inf where the plain's is not")
+            live = torch.isfinite(plse)
+            d_lse = torch.where(live, (lse - plse).abs() / plse.abs().clamp(min=1.0), 0.0)
+            require(float(d_lse.max()) <= LSE_REL,
+                    f"decode_attention {label} block {i}: lse rel err {float(d_lse.max())}")
+            lse_err = max(lse_err, float(d_lse.max()))
+            blocks.append((args, first))
+            parts.append(o)
+            lses.append(lse)
+        stacked = torch.stack(parts)
+        merged = merge_partials(stacked, torch.stack(lses)).to(dtype)
+        one = da.decode_attention(q, k, v, lens, window=window)
+        plain = da.decode_attention_plain(q, k, v, kv_len=lens, window=window)
+        e_one = ds_merge_close(torch, merged, one, f"decode_attention {label} merge")
+        e_plain = ds_merge_close(torch, merged, plain, f"decode_attention {label} merge vs plain")
+        require(not bool(merged[1].any()), f"decode_attention {label}: kv_len 0 must give 0")
+        # the timed block: the last, which holds every sequence's newest rows
+        args, first = blocks[-1]
+        pos = torch.arange(n, device=dev)[None, :] + (DS_BLOCKS - 1) * n
+        mask = pos < lens[:, None]
+        if window is not None:
+            mask &= pos >= lens[:, None] - window
+        live = int(mask.sum())
+        nbytes = 2 * (2 * live * HKV * DH + 2 * B * HQ * DH) + 4 * B * (2 + HQ)
+        b_da = bound(nbytes, 4 * HQ * DH * live, BF16_OPS_PER_S)
+        row = out[("decode_attention", label, "bfloat16")] = dict(
+            max_abs_err=max(err, e_one, e_plain), lse_rel_err=lse_err, merge_vs_one=e_one,
+            merge_vs_plain=e_plain, blocks=DS_BLOCKS,
+            ms=graph_ms(torch, [lambda: da.decode_attention(
+                *args, window=window, first_row=first, return_lse=True)]),
+            plain_ms=graph_ms(torch, [lambda: da.decode_attention_plain(
+                *args[:3], kv_len=lens, window=window, first_row=first, return_lse=True)],
+                replays=5 if S > 4096 else 15),
+            bound_ms=b_da[0], bound_by=b_da[1],
+            library_ms=sdpa_ms(torch, q[:, :, None], args[1], args[2], causal=False,
+                               mask=mask[:, None, None, :]),
+            bytes=nbytes)
+        log_card(f"dist_serve kernels: decode_attention {label} B={B} Hq={HQ} Hkv={HKV} "
+                 f"S={S} dh={DH} window={window} in {DS_BLOCKS} blocks of {n} rows: {row}")
+        del q, kc, vc, k, v, blocks, parts, lses, stacked
+    for label, Bt, L, with_h0 in DS_SCAN:
+        s = scan_inputs(torch, gen, dev, Bt, L, dtype, Dm=DS_SCAN_DM)
+        err = scan_check(torch, ms, s, s[6] if with_h0 else None, label)
+        nbytes, n_ops = scan_work(Bt, L, DS_SCAN_DM, NS, s[0].element_size(), with_h0)
+        b_s = bound(nbytes, n_ops)
+        fn = ((lambda: ms.mamba_scan(*s, h_out=s[6])) if with_h0
+              else (lambda: ms.mamba_scan(*s[:6])))
+        plain = (lambda: ms.mamba_scan_plain(*s)) if with_h0 else \
+            (lambda: ms.mamba_scan_plain(*s[:6]))
+        row = out[("mamba_scan", label, "bfloat16")] = dict(
+            max_abs_err=err, ms=graph_ms(torch, [fn]), plain_ms=graph_ms(torch, [plain]),
+            bound_ms=b_s[0], bound_by=b_s[1], library_ms=None, bytes=nbytes, ops=n_ops)
+        log_card(f"dist_serve kernels: mamba_scan {label} Bt={Bt} L={L} Dm={DS_SCAN_DM} "
+                 f"N={NS} bf16 {row}")
+    torch.cuda.empty_cache()
+    return out
+
+
+# The model checks' MoE capacity: EP drops nothing there, as one process
+# (no capacity) does not; the drops at the config's own capacity are counted
+# from the same routing (``ds_drops``).
+DS_CAPACITY = 8.0
+
+
+def ds_cfg(arch: str, layers: int, enc_layers: int):
+    """A model check's config: full width, ``layers`` (and whisper's
+    ``enc_layers``), an MoE model at DS_CAPACITY."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=layers, enc_layers=enc_layers or cfg.enc_layers)
+    return dataclasses.replace(cfg, capacity_factor=DS_CAPACITY) if cfg.n_experts else cfg
+
+
+def ds_drops(torch, moe, calls, capacity: float) -> tuple[int, int]:
+    """(pairs, dropped) over the ``_moe_local`` calls a spy recorded, the
+    kept pairs recomputed from each call's expert ids at ``capacity``."""
+    import dataclasses
+    pairs = dropped = 0
+    for c in calls:
+        cfg = dataclasses.replace(c.kwargs["cfg"], capacity_factor=capacity)
+        keep = moe.kept_pairs(c.args[1], cfg, c.kwargs["n_data"], c.kwargs["e_pad"])
+        pairs += keep.numel()
+        dropped += int((~keep).sum())
+    return pairs, dropped
+
+
+def serve_blocks(torch, model, seed: int) -> dict:
+    """This rank's blocks, in the serving plan, of the weights
+    ``Model.init_params(seed)`` draws on the card: drawn in its order from
+    one generator, a layer at a time, each cut to its block at once, so no
+    rank holds more than one whole layer (jamba's MoE layers are 5.6 GB)."""
+    from repro_torch.launch.sharding import shard_tree
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import dtype_of, normal
+    from repro_torch.models.model import padded_vocab
+    cfg, dev, plan, dist = model.cfg, model.device, model.serve_plan, model.dist
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dt, d = dtype_of(cfg), cfg.d_model
+
+    def cut(t, spec):
+        return shard_tree(t, spec, dist)
+
+    def stack(layer_cfg, specs):
+        return [cut(tf.init_sublayer(gen, layer_cfg, spec, dev), s)
+                for spec, s in zip(tf.layer_pattern(layer_cfg), specs)]
+
+    vp = padded_vocab(cfg.vocab_size)
+    out = {"embed": cut(normal(gen, (vp, d), dt, d ** -0.5, dev), plan["embed"]),
+           "head": cut(normal(gen, (vp, d), dt, d ** -0.5, dev), plan["head"]),
+           "final_norm": torch.zeros(d, dtype=torch.float32, device=dev),
+           "layers": stack(cfg, plan["layers"])}
+    if cfg.family == "encdec":
+        out["enc"] = {"proj": cut(normal(gen, (cfg.enc_dim, d), dt, cfg.enc_dim ** -0.5, dev),
+                                  plan["enc"]["proj"]),
+                      "layers": stack(model._enc_cfg(), plan["enc"]["layers"]),
+                      "final_norm": torch.zeros(d, dtype=torch.float32, device=dev)}
+    return out
+
+
+class TopK:
+    """``repro_torch.models.moe._top_k`` (every routing's choice: the
+    routed path's, EP's and the dense paths') wrapped: each call's router
+    input (fp32), its own ids and the router are kept in call order. With
+    ``ref`` (a list of such calls of the one-process run) the i-th call
+    takes, for each of its tokens, the ids of the reference's token of
+    call i nearest to it (its rows are some of the reference's), weighted
+    by its own probabilities at them; ``near_ties`` then holds its own
+    choices to the reference's."""
+
+    def __init__(self, torch, ref=None):
+        self.torch, self.ref, self.calls, self.matched = torch, ref, [], []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._orig = moe, moe._top_k
+        torch = self.torch
+
+        def top_k(x, router_w, cfg, e_pad):
+            probs, ids, weights = self._orig(x, router_w, cfg, e_pad)
+            self.calls.append((x.float().cpu(), ids.cpu(), router_w.float().cpu()))
+            if self.ref is not None:
+                rx, rids, _ = self.ref[len(self.calls) - 1]
+                near = torch.cdist(x.float(), rx.to(x.device)).argmin(1).cpu()
+                self.matched.append((rx[near], rids[near], router_w.float().cpu()))
+                ids = rids[near].to(device=x.device, dtype=ids.dtype)
+                weights = probs.gather(1, ids.long())
+                weights = weights / weights.sum(-1, keepdim=True).clamp(min=1e-9)
+            return probs, ids, weights
+
+        moe._top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._top_k = self._orig
+
+
+def ds_reference(torch, arch, layers, enc_layers, batches) -> dict:
+    """The one-process card run of each model check: seeded tokens (and
+    audio or patches), a prefill of DS_PROMPT and DS_STEPS greedy decode
+    steps; per batch the logits (vocab columns, fp32, on the host), the
+    tokens and every routing call (``TopK``)."""
+    from repro_torch.models.model import Model
+    cfg = ds_cfg(arch, layers, enc_layers)
+    model = Model(cfg, device=DIST_DEVICE)
+    params = model.init_params(0)
+    V, out = cfg.vocab_size, {}
+    for B in batches:
+        gen = torch.Generator().manual_seed(11 + B)
+        toks = torch.randint(2, V, (B, DS_PROMPT), generator=gen, dtype=torch.int32)
+        extra = family_inputs(torch, cfg, B, gen)
+        room = prefix_len(extra) + DS_PROMPT + DS_STEPS + 4
+        with TopK(torch) as routes:
+            lg, cache, kv = model.prefill(params, {"tokens": toks.to(DIST_DEVICE), **{
+                k: t.to(DIST_DEVICE) for k, t in extra.items()}}, room)
+            logits, tokens = [lg[:, :V].cpu()], []
+            for _ in range(DS_STEPS):
+                tok = lg[:, :V].argmax(1).to(torch.int32)
+                tokens.append(tok.cpu())
+                lg, cache, kv = model.decode_step(params, cache, tok, kv)
+                logits.append(lg[:, :V].cpu())
+        del cache
+        # the same run with each row alone (its MoE layers on the batched
+        # run's choices): how far one process is from itself
+        noise = 0.0
+        for i in range(B):
+            with TopK(torch, routes.calls or None):
+                lg, cache, kv = model.prefill(params, {"tokens": toks[i:i + 1].to(DIST_DEVICE), **{
+                    k: t[i:i + 1].to(DIST_DEVICE) for k, t in extra.items()}}, room)
+                noise = max(noise, float((lg[:, :V].cpu() - logits[0][i:i + 1]).abs().max()))
+                for step, tok in enumerate(tokens):
+                    lg, cache, kv = model.decode_step(params, cache,
+                                                      tok[i:i + 1].to(DIST_DEVICE), kv)
+                    noise = max(noise, float((lg[:, :V].cpu()
+                                              - logits[step + 1][i:i + 1]).abs().max()))
+            del cache
+        out[B] = dict(tokens=toks, extra=extra, room=room, logits=logits, steps=tokens,
+                      routes=routes.calls, noise=noise)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ds_moe_rule(cfg, dist, tokens: int) -> str:
+    """The reference's ``moe_apply`` dispatch for ``tokens`` global tokens."""
+    tp = dist.n_model > 1 and cfg.d_ff_expert < 128 * dist.n_model
+    shards = dist.n_pod * dist.n_data * (dist.n_model if tp else 1)
+    return "ep" if dist.n_data > 1 and tokens % shards == 0 else "dense"
+
+
+def ds_model(torch, rank, dist, counters, spent, arch, layers, enc_layers, refs) -> dict:
+    """One model check on this rank: its serving-plan blocks
+    (``serve_blocks``), then per batch the meshed prefill and DS_STEPS
+    decode steps on the one-process run's tokens, its MoE layers forced
+    onto that run's choices (``TopK``); the logits gathered to every rank
+    (rank 0 holds them against the one-process run's), the time and
+    staged transfers of each call, the port's launches per call, the MoE
+    dispatch of each layer and its drops."""
+    from unittest import mock
+
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.sharding import batch_spec
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    cfg = ds_cfg(arch, layers, enc_layers)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=DIST_DEVICE, dist=dist)
+    params = serve_blocks(torch, model, 0)
+    V, out = cfg.vocab_size, {}
+    for B, ref in refs.items():
+        rows, axes = model.rows(B), batch_spec(dist, B)
+        batch = {"tokens": ref["tokens"][rows].to(DIST_DEVICE),
+                 **{k: t[rows].to(DIST_DEVICE) for k, t in ref["extra"].items()}}
+        taken = []
+
+        def spy(kind, fn):
+            def call(*a, **k):
+                taken.append(kind)
+                return fn(*a, **k)
+            return call
+
+        calls, ms, staged, launches, logits = [], [], [], [], []
+        with TopK(torch, ref["routes"] or None) as routes, \
+                mock.patch.object(moe, "_moe_local", wraps=moe._moe_local) as local, \
+                mock.patch.object(moe, "moe_ffn_ep", spy("ep", moe.moe_ffn_ep)), \
+                mock.patch.object(moe, "_moe_dense_sharded",
+                                  spy("dense", moe._moe_dense_sharded)):
+            for step in range(DS_STEPS + 1):
+                for fn in counters.values():
+                    fn.launches = 0
+                del taken[:]
+                torch.cuda.synchronize()
+                c0, t0 = spent["s"], time.perf_counter()
+                if step == 0:
+                    lg, cache, kv = model.prefill(params, batch, ref["room"], batch_size=B)
+                else:
+                    lg, cache, kv = model.decode_step(
+                        params, cache, ref["steps"][step - 1][rows].to(DIST_DEVICE), kv)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                staged.append((spent["s"] - c0) * 1e3)
+                launches.append({k: f.launches for k, f in counters.items() if f.launches})
+                calls.append(list(taken))
+                logits.append(coll.gather_value(lg[:, :V].contiguous(), 0, dist, axes).cpu())
+        res = dict(prefill_ms=ms[0], decode_ms=ms[1:], staged_ms=staged, launches=launches,
+                   dispatch=calls, routed_calls=len(routes.calls))
+        if calls[0]:
+            n_tok = [B * (prefix_len(ref["extra"]) + DS_PROMPT)] + [B] * DS_STEPS
+            res["rule"] = [ds_moe_rule(cfg, dist, t) for t in n_tok]
+            res["pairs_dropped"] = ep_drops(torch, moe, local.call_args_list)
+            require(res["pairs_dropped"][1] == 0,
+                    f"dist_serve {arch} B {B}: EP dropped pairs at capacity {DS_CAPACITY}")
+            from repro_torch.configs import get_config
+            res["config_capacity"] = get_config(arch).capacity_factor
+            res["dropped_at_config"] = ds_drops(torch, moe, local.call_args_list,
+                                                res["config_capacity"])
+            res["flips"] = near_ties(torch, routes.matched, routes.calls,
+                                     f"dist_serve {arch} B {B} rank {rank}")[0]
+        if rank == 0:
+            errs, differ, ties = [], 0, 0
+            tol = max(LOGIT_TOL, DS_NOISE_FACTOR * ref["noise"])
+            for step, (got, want) in enumerate(zip(logits, ref["logits"])):
+                require(bool(torch.isfinite(got).all()),
+                        f"dist_serve {arch} B {B}: non-finite logits at step {step}")
+                errs.append(float((got - want).abs().max()))
+                top2 = want.topk(2, dim=1).values
+                clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+                other = got.argmax(1) != want.argmax(1)
+                require(not bool((other & clear).any()),
+                        f"dist_serve {arch} B {B}: a greedy token differs beyond a near "
+                        f"tie at step {step}")
+                differ += int(other.sum())
+                ties += int((~clear).sum())
+            require(max(errs) <= tol,
+                    f"dist_serve {arch} B {B}: meshed vs one-process logits err {errs} past "
+                    f"{tol} (one process against itself {ref['noise']})")
+            res.update(errs=errs, differ=differ, near_ties=ties, noise=ref["noise"], tol=tol)
+        out[B] = res
+        del cache
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# Meshed logits against one process: LOGIT_TOL, or this factor of the
+# one-process model's disagreement with itself over the same steps (its
+# rows run one at a time against together) where that is larger: at full
+# width in bf16 it is ~0.09 after 28 llama layers or 8 jamba layers.
+DS_NOISE_FACTOR = 1.25
+
+
+def ds_teacher_forced(torch, model, params, prompt, toks, max_len: int) -> list:
+    """One process's logits (vocab columns, fp32) of a prefill of
+    ``prompt`` and the decode steps on the tokens ``toks`` (B, new): one
+    (B, V) tensor a step, the new-th after the last token but one."""
+    V = model.cfg.vocab_size
+    lg, cache, kv = model.prefill(params, {"tokens": torch.from_numpy(prompt).to(
+        DIST_DEVICE)}, max_len)
+    out = [lg[:, :V].float()]
+    for step in range(toks.shape[1] - 1):
+        tok = torch.from_numpy(toks[:, step]).to(DIST_DEVICE, torch.int32)
+        lg, cache, kv = model.decode_step(params, cache, tok, kv)
+        out.append(lg[:, :V].float())
+    return out
+
+
+def ds_engine(torch, rank, dist, counters, spent) -> dict:
+    """The meshed engine (``launch.serve.run_serving(dist=...)``): rank 0's
+    HNSW cache in front of llama3.2-3b at full width and depth, the other
+    ranks following. Every call of the meshed model is timed and its
+    logits gathered; rank 0 then runs the one-process model on each miss
+    batch's prompt and the engine's tokens (teacher-forced) and holds
+    every step's logits to it, every greedy token that differs a near
+    tie."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.serve import run_serving
+    from repro_torch.launch.sharding import batch_spec
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import ServingEngine
+    arch, n_req, max_batch, P, new = DS_ENGINE
+    cfg = get_config(arch)
+    V = cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"prefill": [], "decode": [], "batches": [], "logits": []}
+    orig_prefill, orig_decode, orig_run = Model.prefill, Model.decode_step, ServingEngine._run
+
+    def timed(kind, fn):
+        def call(self, *a, **kw):
+            torch.cuda.synchronize()
+            c0, t0 = spent["s"], time.perf_counter()
+            res = fn(self, *a, **kw)
+            torch.cuda.synchronize()
+            rec[kind].append(((time.perf_counter() - t0) * 1e3, (spent["s"] - c0) * 1e3))
+            B = rec["batches"][-1][0].shape[0]
+            lg = coll.gather_value(res[0][:, :V].contiguous(), 0, self.dist,
+                                   batch_spec(self.dist, B))
+            if rank == 0:
+                rec["logits"][-1].append(lg)
+            return res
+        return call
+
+    def run(self, params, tokens):
+        rec["batches"].append([tokens.copy(), None])
+        rec["logits"].append([])
+        out = orig_run(self, params, tokens)
+        rec["batches"][-1][1] = out.copy()
+        return out
+
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(Model, "prefill", timed("prefill", orig_prefill)), \
+            mock.patch.object(Model, "decode_step", timed("decode", orig_decode)), \
+            mock.patch.object(ServingEngine, "_run", run):
+        res = run_serving(cfg, n_requests=n_req, max_batch=max_batch, prompt_len=P,
+                          max_new_tokens=new, index_kind="hnsw", dist=dist, device=DIST_DEVICE,
+                          log=lambda *_: None)
+    torch.cuda.synchronize()
+    probe = torch.empty(0, device=DIST_DEVICE)
+    out = dict(seconds=time.perf_counter() - t0,
+               eager=("generation runs eagerly on purpose (CapturedProgram(graphs=False)): "
+                      "the model's collectives stage through host memory (gloo)"
+                      if coll.stages_through_host(probe) else "graphs"),
+               launches={k: f.launches for k, f in counters.items() if f.launches},
+               prefill=rec["prefill"], decode=rec["decode"],
+               generated=res["generated"], peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               staged_by_op={k: list(v) for k, v in spent["by_op"].items()})
+    if rank == 0:
+        out.update({k: res[k] for k in ("served", "hit_rate", "model_tokens")})
+        gc.collect()
+        torch.cuda.empty_cache()
+        one = Model(cfg, device=DIST_DEVICE)
+        p1 = one.init_params(0)
+        errs, noise, per_batch, tokens = [], [], [], []
+        for (prompt, toks), logits in zip(rec["batches"], rec["logits"]):
+            B = prompt.shape[0]
+            alone = [ds_teacher_forced(torch, one, p1, prompt[i:i + 1], toks[i:i + 1],
+                                       P + new) for i in range(B)]
+            for step, (got, want) in enumerate(zip(logits, ds_teacher_forced(
+                    torch, one, p1, prompt, toks, P + new))):
+                errs.append(float((got - want).abs().max()))
+                noise.append(float((torch.cat([a[step] for a in alone]) - want).abs().max()))
+                tokens.append((want, torch.from_numpy(toks[:, step]).to(DIST_DEVICE), B, step))
+            per_batch.append((B, round(max(errs[-len(logits):]), 5),
+                              round(max(noise[-len(logits):]), 5)))
+        # at full depth in bf16 the one-process model disagrees with itself
+        # (its rows run one at a time against together: only the GEMMs'
+        # summation order differs) by about this much on the same steps
+        tol = max(LOGIT_TOL, DS_NOISE_FACTOR * max(noise))
+        differ = ties = 0
+        for want, mine, B, step in tokens:
+            top2 = want.topk(2, dim=1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+            other = mine != want.argmax(1)
+            require(not bool((other & clear).any()),
+                    f"dist_serve engine: a greedy token differs beyond a near tie "
+                    f"(batch of {B}, step {step})")
+            differ += int(other.sum())
+            ties += int((~clear).sum())
+        require(max(errs) <= tol,
+                f"dist_serve engine: meshed vs one-process logits err max {max(errs)} past "
+                f"{tol}; (batch size, max err, one process against itself) per miss batch "
+                f"{per_batch}")
+        out.update(errs_max=max(errs), steps_held=len(errs), differ=differ, near_ties=ties,
+                   per_batch=per_batch, noise_max=max(noise), tol=tol,
+                   batch_sizes=[b[0].shape[0] for b in rec["batches"]])
+        del one, p1
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ds_train(torch, rank, dist) -> dict:
+    """One sharded train step's loss and gathered gradients of
+    falcon-mamba-7b at full width and DS_TRAIN's layers (the Mamba
+    block's tensor parallelism under ``MambaScanFn``), against the
+    one-process card run (rank 0)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import gather_tree, shard_tree
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.convert import tree_leaves, tree_unflatten
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig
+    arch, layers, B, S = DS_TRAIN
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    model = Model(cfg, device=DIST_DEVICE, dist=dist)
+    params = shard_tree(Model(cfg, device=DIST_DEVICE).init_params(0), model.plan, dist)
+    torch.cuda.empty_cache()
+    batch = train_batch(torch, cfg, B, S, DIST_DEVICE)
+    step = make_train_step(model, AdamWConfig())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = step.grads(params, batch)
+    torch.cuda.synchronize()
+    out = dict(loss=float(loss), ms=(time.perf_counter() - t0) * 1e3)
+    grads = gather_tree(tree_unflatten(params, grads), model.plan, dist)
+    del params
+    torch.cuda.empty_cache()
+    if rank == 0:
+        one = Model(cfg, device=DIST_DEVICE)
+        ref_loss, ref_grads = loss_and_grads(torch, one, one.init_params(0), batch)
+        out.update(ref_loss=ref_loss, grad_errs=grad_errs(tree_leaves(grads), ref_grads))
+        del ref_grads
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_serve_rank(rank, world, refs_path) -> dict:
+    """One rank of phase 12 on the card (see the module docstring)."""
+    import torch
+
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.context import Dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = {fn.__name__: fn for fn in ops.COUNTED}
+    dist = Dist.from_mesh(make_mesh((2, 2), ("data", "model"), DIST_DEVICE))
+    spent = time_collectives(torch, coll)
+    refs = torch.load(refs_path, weights_only=False)
+    t0 = time.perf_counter()
+    out = {"engine": ds_engine(torch, rank, dist, counters, spent)}
+    # a barrier: rank 0 ends the engine check alone, and the model checks'
+    # times should not include the other ranks' wait for it
+    coll.all_reduce(torch.zeros(1, device=DIST_DEVICE), dist, ("data", "model"))
+    for arch, layers, enc_layers, _ in DS_MODELS:
+        out[arch] = ds_model(torch, rank, dist, counters, spent, arch, layers, enc_layers,
+                             refs[arch])
+    out["train"] = ds_train(torch, rank, dist)
+    out["staged"] = dict(coll.STAGED)
+    out["staged_by_op"] = spent["by_op"]
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def run_dist_serve_phase(torch, dev, counters) -> dict:
+    """Phase 12 (see the module docstring)."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import launch_ranks
+    from repro_torch.launch.serve import run_serving
+    kernels = ds_kernels(torch, dev)
+    t0 = time.perf_counter()
+    refs = {arch: ds_reference(torch, arch, layers, enc, batches)
+            for arch, layers, enc, batches in DS_MODELS}
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "refs.pt")
+        torch.save(refs, path)
+        try:
+            ranks = launch_ranks(dist_serve_rank, DIST_WORLD, backend="gloo", device=DIST_DEVICE,
+                                 timeout=900, args=(path,))
+        except (RuntimeError, TimeoutError) as exc:
+            raise SmokeFailure(f"dist_serve: {exc}") from exc
+    t2 = time.perf_counter()
+    arch, n_req, max_batch, P, new = DS_ENGINE
+    for fn in counters.values():
+        fn.launches = 0
+    one = run_serving(get_config(arch), n_requests=n_req, max_batch=max_batch, prompt_len=P,
+                      max_new_tokens=new, index_kind="hnsw", device=DIST_DEVICE,
+                      log=lambda *_: None)
+    one_launches = {k: f.launches for k, f in counters.items() if f.launches}
+    t3 = time.perf_counter()
+    r0, en = ranks[0], ranks[0]["engine"]
+    same = ("served", "hit_rate", "model_tokens")
+    require(all(en[k] == one[k] for k in same),
+            f"dist_serve engine: counters {[en[k] for k in same]} vs one process "
+            f"{[one[k] for k in same]}")
+    require(all(len(r["engine"]["generated"]) == len(en["generated"]) and all(
+        np.array_equal(a, b) for a, b in zip(r["engine"]["generated"], en["generated"]))
+        for r in ranks), "dist_serve engine: the ranks' tokens differ")
+    tok_equal = sum(int((a == b).sum()) for a, b in zip(en["generated"], one["generated"]))
+    tok_all = sum(a.size for a in one["generated"])
+    for name in ("flash_attention", "decode_attention"):
+        require(all(r["engine"]["launches"].get(name, 0) > 0 for r in ranks),
+                f"dist_serve engine: {name} launched on no rank's run "
+                f"{[r['engine']['launches'] for r in ranks]}")
+    layers = get_config(arch).n_layers
+    pre = [[round(x[0], 1) for x in r["engine"]["prefill"]] for r in ranks]
+    dec = [statistics.median(x[0] for x in r["engine"]["decode"]) for r in ranks]
+    dec_coll = [statistics.median(x[1] for x in r["engine"]["decode"]) for r in ranks]
+    log(f"dist_serve engine: {r0['engine'].get('eager', '')}")
+    log_card(f"dist_serve engine {arch}: {layers} layers at full width, bf16, serving plan on "
+             f"(data 2, model 2) over gloo, 4 ranks on one card, HNSW cache on rank 0, "
+             f"{n_req} requests, batch <= {max_batch}, prompt {P}, {new} new tokens: counters "
+             f"{[en[k] for k in same]} = one process's {[one[k] for k in same]}; miss batches "
+             f"{en['batch_sizes']}; every rank's tokens equal; tokens equal to the "
+             f"one-process (graph) engine's {tok_equal}/{tok_all}; {en['steps_held']} steps' "
+             f"logits vs the one-process model teacher-forced max |d| {en['errs_max']:.5f}, "
+             f"the one-process model against itself (each row alone) {en['noise_max']:.5f}, "
+             f"(batch size, max |d|, against itself) per miss batch {en['per_batch']} "
+             f"(tolerance max({LOGIT_TOL}, {DS_NOISE_FACTOR} x against itself) = "
+             f"{en['tol']:.5f}), greedy tokens that differ {en['differ']} (each a near "
+             f"tie; {en['near_ties']} within 2x the tolerance); prefill ms per rank {pre}; "
+             f"decode step ms p50 per rank {[round(x, 1) for x in dec]}, of which in the "
+             f"staged transfers {[round(x, 1) for x in dec_coll]}; engine seconds per rank "
+             f"{[round(r['engine']['seconds'], 1) for r in ranks]}; launches per rank "
+             f"{[r['engine']['launches'] for r in ranks]} (one process, graphs: "
+             f"{one_launches} at wrapper calls); peak GiB per rank in the engine run "
+             f"{[round(r['engine']['peak_gib'], 2) for r in ranks]}; staged transfers by op "
+             f"(count, ms) per rank "
+             f"{[r['engine']['staged_by_op'] for r in ranks]}")
+    launches = {k: sum(r["engine"]["launches"].get(k, 0) for r in ranks)
+                for k in ("flash_attention", "decode_attention", "mamba_scan")}
+    for arch, layers, enc_layers, batches in DS_MODELS:
+        for B in batches:
+            m0 = r0[arch][B]
+            require(all(r[arch][B]["dispatch"] == m0["dispatch"] for r in ranks),
+                    f"dist_serve {arch} B {B}: the ranks' MoE dispatch differs")
+            rule = ""
+            if "rule" in m0:
+                got = [sorted(set(d)) for d in m0["dispatch"]]
+                require(got == [[r] for r in m0["rule"]],
+                        f"dist_serve {arch} B {B}: MoE dispatch {m0['dispatch']} against "
+                        f"the reference's rule {m0['rule']}")
+                rule = (f"; MoE dispatch per call {m0['dispatch']} = the reference's rule "
+                        f"{m0['rule']}, EP (pairs, dropped) per rank at capacity "
+                        f"{DS_CAPACITY} {[r[arch][B]['pairs_dropped'] for r in ranks]}, at "
+                        f"the config's {m0['config_capacity']} "
+                        f"{[r[arch][B]['dropped_at_config'] for r in ranks]}, own choices that "
+                        f"differ from the one-process run's (each a near tie) per rank "
+                        f"{[r[arch][B]['flips'] for r in ranks]}")
+            kinds = [k for k in ("flash_attention", "decode_attention", "mamba_scan")
+                     if any(k in c for c in m0["launches"])]
+            for k in kinds:
+                launches[k] += sum(c.get(k, 0) for r in ranks for c in r[arch][B]["launches"])
+            per_call = [{k: c.get(k, 0) for k in kinds} for c in m0["launches"]]
+            log_card(f"dist_serve {arch}: {layers} layers"
+                     f"{f' + {enc_layers} encoder layers' if enc_layers else ''} at full "
+                     f"width (depth cut for the time limit), bf16, (data 2, model 2), B {B}, "
+                     f"prompt {DS_PROMPT}{' + patches' if 'llava' in arch else ''}: logits vs "
+                     f"one process per step max |d| {[round(e, 5) for e in m0['errs']]}, one "
+                     f"process against itself (each row alone) {m0['noise']:.5f} (tolerance "
+                     f"max({LOGIT_TOL}, {DS_NOISE_FACTOR} x that) = {m0['tol']:.5f}), greedy "
+                     f"tokens that differ {m0['differ']} "
+                     f"(near ties; {m0['near_ties']} within 2x the tolerance); prefill ms per "
+                     f"rank {[round(r[arch][B]['prefill_ms'], 1) for r in ranks]}, decode ms "
+                     f"rank 0 {[round(x, 1) for x in m0['decode_ms']]}, staged ms rank 0 per "
+                     f"call {[round(x, 1) for x in m0['staged_ms']]}; launches rank 0 per call "
+                     f"{per_call}{rule}")
+        log(f"dist_serve {arch}: peak GiB per rank {[round(r[arch]['peak_gib'], 2) for r in ranks]}")
+    for k in ("flash_attention", "decode_attention", "mamba_scan"):
+        require(launches[k] > 0, f"dist_serve: {k} launched on no meshed path")
+    tr = r0["train"]
+    t_arch, t_layers, tB, tS = DS_TRAIN
+    require(all(r["train"]["loss"] == tr["loss"] for r in ranks),
+            f"dist_serve train: the ranks' losses differ")
+    require(abs(tr["loss"] - tr["ref_loss"]) <= TRAIN_LOSS_TOL,
+            f"dist_serve train {t_arch}: sharded loss {tr['loss']} vs {tr['ref_loss']}")
+    require(max(tr["grad_errs"]) <= TRAIN_CPU_REL,
+            f"dist_serve train {t_arch}: gradient errors {tr['grad_errs']}")
+    log_card(f"dist_serve train {t_arch}: {t_layers} layers at full width, bf16, training "
+             f"plan on (data 2, model 2), B {tB} x S {tS}: sharded loss {tr['loss']:.5f} vs "
+             f"one process {tr['ref_loss']:.5f} (tolerance {TRAIN_LOSS_TOL}); gathered grad "
+             f"rel err per leaf max {max(tr['grad_errs']):.4f} (bound {TRAIN_CPU_REL}); "
+             f"loss + backward ms per rank {[round(r['train']['ms'], 1) for r in ranks]}")
+    log(f"dist_serve: gloo staged through host memory (calls per rank 0, by operation): "
+        f"{r0['staged']}, (count, ms) {r0['staged_by_op']}; one-process references "
+        f"{t1 - t0:.1f} s, the card ranks {t2 - t1:.1f} s (rank 0's work "
+        f"{r0['seconds']:.1f} s), the one-process engine {t3 - t2:.1f} s")
+    return dict(kernels=kernels, launches=launches)
+
+
 KERNELS = {
     "frontier_hop": ("src/repro_torch/csrc/frontier_hop.cu",
                      "src/repro/kernels/frontier_hop.py:182"),
@@ -4036,7 +4775,7 @@ KERNEL_WRAPPERS = {"scatter_rows": ("scatter_flush", "scatter_rows")}
 
 
 PHASES = ("build", "kernels", "index", "main", "parity", "shard", "sim", "serve",
-          "encdec_vlm", "train", "dist")
+          "encdec_vlm", "train", "dist", "dist_serve")
 
 
 def main(argv: list[str]) -> int:
@@ -4138,6 +4877,10 @@ def main(argv: list[str]) -> int:
             t0 = time.perf_counter()
             distributed = run_dist_phase(torch, dev, counters)
             log_card(f"phase dist: {time.perf_counter() - t0:.1f} s")
+        if "dist_serve" in phases:
+            t0 = time.perf_counter()
+            dist_served = run_dist_serve_phase(torch, dev, counters)
+            log_card(f"phase dist_serve: {time.perf_counter() - t0:.1f} s")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -4151,6 +4894,7 @@ def main(argv: list[str]) -> int:
                      for k, arch in SERVE_KERNELS.items()})
     numbers.update(trained["kernels"])   # the training shapes ride under "variants"
     numbers.update(distributed["kernels"])   # and a rank's local heads
+    numbers.update(dist_served["kernels"])   # sequence blocks, a rank's channels
     fields = ("max_abs_err", "ms", "earlier_ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms", "entry_set_ms", "earlier_entry_set_ms", "entry_set_bound_ms",
               "floor_ms", "earlier_floor_ms", "per_table_ms", "splits", "chunk", "chunk_ms",
@@ -4180,6 +4924,8 @@ def main(argv: list[str]) -> int:
         if name == "flash_attention":   # phase dist: 4 ranks' timed llama steps
             row["dist"] = {"launches": distributed["launches"],
                            "per_step_per_rank": distributed["per_step"]}
+        if name in dist_served["launches"]:   # phase dist_serve: 4 ranks' meshed serving
+            row["dist_serve"] = {"launches": dist_served["launches"][name]}
         if name in sharded:       # the cache kernels on the sharded and simulator paths
             row["shard"], row["sim"] = sharded[name], simulated[name]
         variants = {"_".join(k[1:]): {f: v[f] for f in fields if f in v}

@@ -25,6 +25,9 @@ and its model), one per key:
   the program's output tensors, which the next replay overwrites.
 * **On the CPU** nothing is captured: ``fn`` runs eagerly on the same
   static buffers, so the copy-in plumbing is what the CPU tests check.
+  An owner whose programs sync with the host (a meshed model whose
+  collectives stage through host memory on gloo) passes ``graphs=False``:
+  its programs run eagerly on the card too, on purpose.
 * **Launch accounting.** A kernel wrapper counts a launch where it makes
   it (``kernels._build.count``): in ``<wrapper>.launches`` when the kernel
   runs then (the warm-up's, an eager call's), in ``<wrapper>.recorded``
@@ -110,8 +113,9 @@ class CapturedProgram:
     capture reads (default: every kernel wrapper of the port)."""
 
     def __init__(self, device: str | torch.device,
-                 counters: Sequence[Callable] | None = None):
+                 counters: Sequence[Callable] | None = None, *, graphs: bool = True):
         self.device = torch.device(device)
+        self._graphs = graphs
         self.counters = tuple(ops.COUNTED if counters is None else counters)
         self.captures: dict = {}
         self.replays: dict = {}
@@ -121,9 +125,9 @@ class CapturedProgram:
 
     @property
     def graphs(self) -> bool:
-        """Whether this holder captures graphs (on the card) or runs its
-        programs eagerly (on the CPU)."""
-        return self.device.type == "cuda"
+        """Whether this holder captures graphs (on the card, unless made
+        with ``graphs=False``) or runs its programs eagerly."""
+        return self.device.type == "cuda" and self._graphs
 
     def ready(self, key) -> bool:
         """True when a run of ``key`` needs no capture: it was captured,

@@ -30,6 +30,17 @@
 // the head dimension contiguous, and every row 16-byte aligned (the wrapper
 // checks), so the model's (B, S, Hkv, dh) cache is read through a
 // transposed view with no copy.
+//
+// Sequence shards: with ``row0`` (B,) the cache holds rows [row0[b],
+// row0[b] + S) of sequence b in absolute positions (one rank's block of a
+// KV sequence split over a mesh). kv_len and the window stay absolute:
+// the block sees local rows [max(kv_len - window - row0, 0), min(kv_len -
+// row0, S)), none where that is empty. With ``lse`` (B, Hq) fp32 the call
+// also writes the log-sum-exp m + log(l) of the scaled logits over the
+// rows it saw, -inf where it saw none (its output row is then 0), and
+// writes its output in fp32 (a partial, not yet rounded), so the blocks
+// of one sequence merge as the splits do: out = sum_r o_r e^(lse_r -
+// LSE), LSE = log sum_r e^(lse_r), rounded once after.
 #include "attention_common.cuh"
 
 namespace repro_torch {
@@ -45,12 +56,30 @@ struct DecodeParams {
   void* o;
   float* part_acc;                               // (B, Hq, NS, DH), NS > 1 only
   float* part_ml;                                // (B, Hq, NS, 2): m, l
+  float* lse;                                    // (B, Hq) or null
+  const int* row0;                               // (B,) first absolute row, or null
   long long q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh;
   int S;
   float scale, softcap;
   int window;                                    // 0 = none
   int chunk, splits;                             // rows per split, NS
 };
+
+// The output element at ``off`` (elements): fp32 where the call returns
+// lse (a partial to be merged), q's type otherwise.
+template <typename T>
+__device__ __forceinline__ void put_out(const DecodeParams& p, long long off, float v) {
+  if (p.lse != nullptr) {
+    store(static_cast<float*>(p.o) + off, v);
+  } else {
+    store(static_cast<T*>(p.o) + off, v);
+  }
+}
+
+// log(l) + m: the log-sum-exp of a running (m, l); -inf where l is 0 (no rows).
+__device__ __forceinline__ float log_sum_exp(float m, float l) {
+  return l > 0.f ? m + logf(l) : -__int_as_float(0x7f800000);
+}
 
 template <typename T, int DH, int G>
 __global__ void __launch_bounds__(kDecWarps * 32) decode_kernel(DecodeParams p) {
@@ -72,8 +101,12 @@ __global__ void __launch_bounds__(kDecWarps * 32) decode_kernel(DecodeParams p) 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sub = lane / LPR;
   const int w0 = (lane % LPR) * CPL;             // this lane's first word
-  const int kv = min(max(p.kv_len[b], 0), p.S);
-  const int first = (p.window > 0 ? max(kv - p.window, 0) : 0) + split * p.chunk;
+  // absolute rows: [kv_len - window, kv_len) visible, [lo, lo + S) held; without
+  // row0 a kv_len past S counts as S
+  const int lo = p.row0 != nullptr ? p.row0[b] : 0;
+  const int kv_abs = p.row0 != nullptr ? p.kv_len[b] : min(p.kv_len[b], p.S);
+  const int kv = min(max(kv_abs - lo, 0), p.S);
+  const int first = (p.window > 0 ? max(kv_abs - p.window - lo, 0) : 0) + split * p.chunk;
   const int len = p.splits > 1 ? min(first + p.chunk, kv) : kv;   // this split's rows end
   const int hq0 = hk * G;
   if (p.splits > 1 && first >= len) {            // a split with no rows
@@ -186,7 +219,7 @@ __global__ void __launch_bounds__(kDecWarps * 32) decode_kernel(DecodeParams p) 
     }
   }
   __syncthreads();
-  T* Ob = static_cast<T*>(p.o) + b * p.o_sb + hq0 * p.o_sh;
+  const long long ob = b * p.o_sb + hq0 * p.o_sh;
   for (int idx = threadIdx.x; idx < G * DH; idx += blockDim.x) {
     const int h = idx / DH, d = idx - h * DH;
     float mx = kNegInf;
@@ -200,7 +233,9 @@ __global__ void __launch_bounds__(kDecWarps * 32) decode_kernel(DecodeParams p) 
       num += sm_acc[(w * G + h) * DH + d] * f;
     }
     if (p.splits == 1) {
-      store(Ob + h * p.o_sh + d, num / fmaxf(den, 1e-30f));
+      put_out<T>(p, ob + h * p.o_sh + d, num / fmaxf(den, 1e-30f));
+      if (p.lse != nullptr && d == 0)
+        p.lse[static_cast<long long>(b) * gridDim.x * G + hq0 + h] = log_sum_exp(mx, den);
     } else {
       const long long row = (static_cast<long long>(b) * gridDim.x * G + hq0 + h) * p.splits
                             + split;
@@ -218,8 +253,8 @@ __global__ void __launch_bounds__(kDecWarps * 32) decode_kernel(DecodeParams p) 
 template <typename T, int DH>
 __global__ void __launch_bounds__(DH) combine_kernel(DecodeParams p, int Hq) {
   const int hq = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const long long row0 = (static_cast<long long>(b) * Hq + hq) * p.splits;
-  const float* ml = p.part_ml + row0 * 2;
+  const long long base = (static_cast<long long>(b) * Hq + hq) * p.splits;
+  const float* ml = p.part_ml + base * 2;
   float mx = kNegInf;
   for (int c = 0; c < p.splits; ++c) mx = fmaxf(mx, ml[2 * c]);
   float num = 0.f, den = 0.f;
@@ -227,10 +262,12 @@ __global__ void __launch_bounds__(DH) combine_kernel(DecodeParams p, int Hq) {
     if (ml[2 * c + 1] > 0.f) {                   // a split that held rows
       const float f = expf(ml[2 * c] - mx);
       den += ml[2 * c + 1] * f;
-      num += p.part_acc[(row0 + c) * DH + d] * f;
+      num += p.part_acc[(base + c) * DH + d] * f;
     }
   }
-  store(static_cast<T*>(p.o) + b * p.o_sb + hq * p.o_sh + d, num / fmaxf(den, 1e-30f));
+  put_out<T>(p, b * p.o_sb + hq * p.o_sh + d, num / fmaxf(den, 1e-30f));
+  if (p.lse != nullptr && d == 0)
+    p.lse[static_cast<long long>(b) * Hq + hq] = log_sum_exp(mx, den);
 }
 
 template <typename T, int DH, int G>
@@ -275,10 +312,12 @@ cudaError_t dispatch_dh(const DecodeParams& p, int B, int Hkv, int g, int dh, cu
 // softcap <= 0 and window <= 0 mean none. dh in {64, 128, 256}, g in
 // {1, 2, 3, 4, 8}. splits = NS >= 1 blocks of chunk rows per (sequence, KV
 // head); with NS > 1, part_acc (B, Hq, NS, dh) and part_ml (B, Hq, NS, 2)
-// are fp32 scratch.
+// are fp32 scratch. lse (B, Hq) fp32 contiguous and row0 (B,) int32 may
+// be null (no log-sum-exp; the rows start at 0); with lse, o is fp32.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* kv_len, void* o, void* part_acc,
-                                       void* part_ml, const long long* strides, int B,
+                                       void* part_ml, void* lse, const void* row0,
+                                       const long long* strides, int B,
                                        int Hq, int Hkv, int S, int dh, float scale,
                                        float softcap, int window, int chunk, int splits,
                                        int dtype, void* stream) {
@@ -287,6 +326,7 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
   if (splits < 1 || chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
   DecodeParams p{q, k, v, static_cast<const int*>(kv_len), o,
                  static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+                 static_cast<float*>(lse), static_cast<const int*>(row0),
                  strides[0], strides[1], strides[2], strides[3], strides[4],
                  strides[5], strides[6], strides[7], strides[8], strides[9],
                  S, scale, softcap, window, chunk, splits};

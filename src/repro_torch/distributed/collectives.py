@@ -301,6 +301,26 @@ def fetch(t: torch.Tensor, stored, want, dist: Dist, *, model_replica: bool = Tr
     return t
 
 
+def stages_through_host(t: torch.Tensor) -> bool:
+    """Whether a collective of ``t`` over the default group stages it
+    through host memory (a CUDA tensor on gloo): such a collective syncs
+    the stream with the host, so a CUDA graph cannot capture it."""
+    return tdist.is_initialized() and _staged(t, None)
+
+
+def broadcast(t: torch.Tensor, src: int = 0) -> torch.Tensor:
+    """Global rank ``src``'s ``t`` on every rank of the default group, in
+    place (outside autograd): each rank passes a tensor of the same shape
+    and dtype."""
+    buf = t.detach()
+    if _staged(buf, None):
+        buf = _host("broadcast", buf)
+    tdist.broadcast(buf, src)
+    if buf is not t:
+        t.copy_(buf)
+    return t
+
+
 def send(t: torch.Tensor, dst: int) -> None:
     """Point-to-point send to global rank ``dst`` (the pipeline's hand-off)."""
     src = t.detach().contiguous()

@@ -37,7 +37,7 @@ SIGNATURES = {
                                F, F, I, P],
     "flash_attention_wgmma_launch": [P, P, P, P, P, I, I, I, I, I, I, I, I, I,
                                      F, F, P],
-    "decode_attention_launch": [P, P, P, P, P, P, P, P, I, I, I, I, I, F, F,
+    "decode_attention_launch": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, F,
                                 I, I, I, I, P],
     "frontier_hop_launch": [P, P, P, P, P, P, P, P, P, P, P,
                             LL, I, I, I, I, I, I, I, P],

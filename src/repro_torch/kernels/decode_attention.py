@@ -29,6 +29,15 @@ Beyond the TPU kernel, a sliding ``window`` (gemma2's local layers, as the
 reference's ``attend_decode`` masks it): sequence b sees rows
 [max(0, kv_len[b] - window), kv_len[b]), and the splits start at that
 lower bound, so rows before the window are never read either.
+
+Sequence shards (a KV cache whose sequence is split over a mesh,
+``models/transformer.py``): ``first_row`` (B,) int32 gives the absolute
+position of each sequence's local row 0, while ``kv_len`` and the window
+stay absolute, and ``return_lse`` adds the fp32 log-sum-exp (B, Hq) of
+the scaled logits over the rows the call saw (-inf where it saw none; the
+output row is then 0) and returns the output in fp32, a partial not yet
+rounded. ``models.attention.merge_partials`` combines the shards' (out,
+lse) as the combine kernel combines the splits.
 """
 
 from __future__ import annotations
@@ -54,12 +63,22 @@ def num_splits(S: int, window: int | None, chunk: int) -> int:
 
 
 def split_bounds(kv_len: torch.Tensor, S: int, window: int | None, split: int,
-                 chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Rows [lo, hi) of split ``split`` for each sequence: lo = first +
-    split * chunk, hi = min(lo + chunk, kv_len), first = max(0, kv_len -
-    window) with a window and 0 without; hi <= lo means no rows."""
-    n = kv_len.to(torch.int64).clamp(0, S)
-    first = torch.zeros_like(n) if window is None else (n - window).clamp(min=0)
+                 chunk: int, first_row: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Local rows [lo, hi) of split ``split`` for each sequence: lo = first
+    + split * chunk, hi = min(lo + chunk, n), n = clamp(kv - r0, 0, S) and
+    first = max(0, kv - window - r0) with a window, 0 without; r0 is the
+    sequence's ``first_row``, and kv its kv_len, which without
+    ``first_row`` counts at most S (a block of a sharded sequence keeps
+    it: the rows past its end are another block's). hi <= lo means no
+    rows."""
+    kv = kv_len.to(torch.int64)
+    if first_row is None:
+        r0, kv = 0, kv.clamp(max=S)
+    else:
+        r0 = first_row.to(torch.int64)
+    n = (kv - r0).clamp(0, S)
+    first = torch.zeros_like(n) if window is None else (kv - window - r0).clamp(min=0)
     lo = first + split * chunk
     return lo, torch.minimum(lo + chunk, n)
 
@@ -68,11 +87,15 @@ def decode_attention_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
                                  kv_len: torch.Tensor, chunk: int, *,
                                  window: int | None = None,
                                  softcap: float | None = None,
-                                 scale: float | None = None) -> torch.Tensor:
+                                 scale: float | None = None,
+                                 first_row: torch.Tensor | None = None,
+                                 return_lse: bool = False):
     """The split-KV kernel's algorithm in PyTorch: per split its partial
     (m, l, acc) over its rows, then the merge out = sum_c acc_c e^(m_c - m*)
-    / max(sum_c l_c e^(m_c - m*), 1e-30) over the splits that hold rows.
-    All fp32; the output takes q's dtype."""
+    / max(sum_c l_c e^(m_c - m*), 1e-30) over the splits that hold rows,
+    and with ``return_lse`` also m* + log(sum_c l_c e^(m_c - m*)), -inf
+    without rows. All fp32; the output takes q's dtype, or stays fp32 with
+    ``return_lse``."""
     B, Hq, dh = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     g = Hq // Hkv
@@ -83,9 +106,11 @@ def decode_attention_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
         logits = softcap * torch.tanh(logits / softcap)          # (B, Hkv, g, S)
     vf = v.to(torch.float32)[:, :, None]                         # (B, Hkv, 1, S, dh)
     pos = torch.arange(S, device=q.device)
+    if first_row is not None:
+        first_row = first_row.to(q.device)
     ms, ls, accs = [], [], []
     for c in range(num_splits(S, window, chunk)):
-        lo, hi = split_bounds(kv_len.to(q.device), S, window, c, chunk)
+        lo, hi = split_bounds(kv_len.to(q.device), S, window, c, chunk, first_row)
         rows = ((pos >= lo[:, None]) & (pos < hi[:, None]))[:, None, None, :]
         m = logits.masked_fill(~rows, ref.NEG_INF).amax(-1)      # (B, Hkv, g)
         p = torch.where(rows, torch.exp(logits - m[..., None]), 0.0)
@@ -94,33 +119,43 @@ def decode_attention_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
         accs.append((p[..., None, :] @ vf)[..., 0, :])          # (B, Hkv, g, dh)
     m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
     w = torch.where(l > 0, torch.exp(m - m.amax(0)), 0.0)
-    out = (w[..., None] * acc).sum(0) / (w * l).sum(0).clamp_min(1e-30)[..., None]
-    return out.reshape(B, Hq, dh).to(q.dtype)
+    den = (w * l).sum(0)
+    out = (w[..., None] * acc).sum(0) / den.clamp_min(1e-30)[..., None]
+    out = out.reshape(B, Hq, dh)
+    if not return_lse:
+        return out.to(q.dtype)
+    lse = torch.where(den > 0, m.amax(0) + torch.log(den), -torch.inf)
+    return out, lse.reshape(B, Hq)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor, *, softcap: float | None = None,
-                     window: int | None = None, scale: float | None = None
-                     ) -> torch.Tensor:
+                     window: int | None = None, scale: float | None = None,
+                     first_row: torch.Tensor | None = None, return_lse: bool = False):
     """q (B, Hq, dh); k, v (B, Hkv, S, dh), any strides with dh contiguous
-    and 16-byte aligned rows; kv_len (B,) int32 -> (B, Hq, dh) in q's dtype.
-    ``window`` (None = none) keeps the last ``window`` rows before kv_len.
-    A CPU q takes the plain version; a CUDA q launches the kernel (fp32 or
-    bf16, dh in {64, 128, 256}, Hq / Hkv in {1, 2, 3, 4, 8})."""
+    and 16-byte aligned rows; kv_len (B,) int32 -> (B, Hq, dh) in q's dtype,
+    or with ``return_lse`` (B, Hq, dh) fp32 and the (B, Hq) fp32
+    log-sum-exp. ``window``
+    (None = none) keeps the last ``window`` rows before kv_len;
+    ``first_row`` (B,) int32 (None = 0) is each sequence's absolute
+    position of row 0. A CPU q takes the plain version; a CUDA q launches
+    the kernel (fp32 or bf16, dh in {64, 128, 256}, Hq / Hkv in {1, 2, 3,
+    4, 8})."""
     return _decode(q, k, v, kv_len, softcap=softcap, window=window, scale=scale,
-                   chunk=CHUNK)
+                   chunk=CHUNK, first_row=first_row, return_lse=return_lse)
 
 
 def _decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Tensor,
             *, softcap: float | None, window: int | None, scale: float | None,
-            chunk: int) -> torch.Tensor:
+            chunk: int, first_row: torch.Tensor | None = None, return_lse: bool = False):
     """``decode_attention`` with the split size as an argument (the card's
     measurements of other sizes call it; the port calls it with CHUNK)."""
     if window is not None and window <= 0:
         raise ValueError("decode_attention: window must be positive")
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_len=kv_len, softcap=softcap,
-                                      window=window, scale=scale)
+                                      window=window, scale=scale, first_row=first_row,
+                                      return_lse=return_lse)
     check_heads("decode_attention", q, k, v)
     B, Hq, dh = q.shape
     Hkv, S = k.shape[1], k.shape[2]
@@ -129,8 +164,10 @@ def _decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Ten
     if dh not in HEAD_DIMS or Hq // Hkv not in GROUPS:
         raise ValueError(f"decode_attention: dh={dh} must be in {HEAD_DIMS} and "
                          f"Hq/Hkv={Hq // Hkv} in {GROUPS}")
-    if kv_len.device != q.device or kv_len.dtype != torch.int32 or kv_len.shape != (B,):
-        raise ValueError("decode_attention: kv_len must be (B,) int32 on q's device")
+    for name, t in (("kv_len", kv_len), ("first_row", first_row)):
+        if t is not None and (t.device != q.device or t.dtype != torch.int32
+                              or t.shape != (B,)):
+            raise ValueError(f"decode_attention: {name} must be (B,) int32 on q's device")
     if softcap is not None and softcap <= 0:
         raise ValueError("decode_attention: softcap must be positive")
     vec = 16 // q.element_size()
@@ -138,7 +175,11 @@ def _decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Ten
     if any(s % vec for s in strides) or any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("decode_attention: rows must be 16-byte aligned")
     kv_len = kv_len.contiguous()
-    out = torch.empty((B, Hq, dh), dtype=q.dtype, device=q.device)
+    row0 = None if first_row is None else first_row.contiguous()
+    out = torch.empty((B, Hq, dh), dtype=torch.float32 if return_lse else q.dtype,
+                      device=q.device)
+    lse = (torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     ns = num_splits(S, window, chunk)
     part_acc = part_ml = None
     if ns > 1:
@@ -149,12 +190,13 @@ def _decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Ten
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
         None if part_acc is None else part_acc.data_ptr(),
         None if part_ml is None else part_ml.data_ptr(),
+        None if lse is None else lse.data_ptr(), None if row0 is None else row0.data_ptr(),
         ctypes.addressof(arr), B, Hq, Hkv, S, dh,
         scale if scale is not None else dh ** -0.5, softcap or 0.0, window or 0,
         chunk, ns, _DTYPES[q.dtype], _build.stream(q.device))
     _build.check(err, "decode_attention")
     _build.count(decode_attention)
-    return out
+    return out if lse is None else (out, lse)
 
 
 decode_attention.launches = decode_attention.recorded = 0

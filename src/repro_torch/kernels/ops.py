@@ -187,13 +187,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor, *, softcap: float | None = None,
-                     window: int | None = None) -> torch.Tensor:
+                     window: int | None = None, first_row: torch.Tensor | None = None,
+                     return_lse: bool = False):
     """Decode one token against the KV cache: q (B, Hq, dh), k/v
     (B, Hkv, S, dh) (strided views welcome), kv_len (B,) masks the ragged
     tail exactly; kv_len 0 gives 0. ``window`` keeps only the last
-    ``window`` positions before kv_len (gemma2's local layers)."""
+    ``window`` positions before kv_len (gemma2's local layers). A block of
+    a sequence-sharded cache passes ``first_row`` (B,), its row 0's
+    absolute position, and ``return_lse`` for (out, lse (B, Hq) fp32)."""
     return _da.decode_attention(q, k, v, _i32(kv_len.to(q.device)), softcap=softcap,
-                                window=window)
+                                window=window, return_lse=return_lse,
+                                first_row=None if first_row is None
+                                else _i32(first_row.to(q.device)))
 
 
 def mamba_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,

@@ -194,7 +194,8 @@ def bf16_probability_tol(got: torch.Tensor, want: torch.Tensor, pv_abs: torch.Te
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          kv_len: torch.Tensor | int | None = None,
                          softcap: float | None = None, window: int | None = None,
-                         scale: float | None = None) -> torch.Tensor:
+                         scale: float | None = None, first_row: torch.Tensor | None = None,
+                         return_lse: bool = False):
     """One-token GQA decode: q (B, Hq, dh) against k/v (B, Hkv, S, dh).
 
     ``kv_len`` (scalar or (B,); None = S) hides positions >= kv_len; a
@@ -202,6 +203,11 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     hides positions <= (kv_len - 1) - window, as the reference's
     ``models.attention.attend_decode`` masks it. k/v may be strided views
     (the model's cache is (B, S, Hkv, dh) seen through a transpose).
+    ``first_row`` (B,) gives the absolute position of each sequence's row
+    0 (one block of a sequence-sharded cache; kv_len and the window stay
+    absolute). ``return_lse`` returns the output in fp32 (a partial, not
+    rounded) and the log-sum-exp (B, Hq) fp32 of the scaled logits over
+    the visible rows, -inf where there are none.
     """
     B, Hq, dh = q.shape
     Hkv, S = k.shape[1], k.shape[2]
@@ -212,14 +218,21 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     kpos = torch.arange(S, device=q.device)[None, :]
+    if first_row is not None:
+        kpos = kpos + first_row.to(q.device).reshape(B, 1)
     lens = torch.as_tensor(S if kv_len is None else kv_len, device=q.device)
     lens = lens.reshape(-1).expand(B)[:, None]
     mask = kpos < lens
     if window is not None:
         mask &= kpos > (lens - 1) - window
-    out = _attend_plain(logits, mask[:, None, None, None, :],
-                        v.to(torch.float32)[:, :, None])
-    return out.reshape(B, Hq, dh).to(q.dtype)
+    mask = mask[:, None, None, None, :]
+    out = _attend_plain(logits, mask, v.to(torch.float32)[:, :, None]).reshape(B, Hq, dh)
+    if not return_lse:
+        return out.to(q.dtype)
+    m = logits.masked_fill(~mask, NEG_INF).amax(-1)
+    l = torch.where(mask, torch.exp(logits - m[..., None]), 0.0).sum(-1)
+    lse = torch.where(l > 0, m + torch.log(l), -torch.inf)
+    return out, lse.reshape(B, Hq)
 
 
 def mamba_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

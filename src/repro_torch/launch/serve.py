@@ -47,6 +47,8 @@ from repro_torch.core.policy import AdaptiveController, PolicyEngine, \
     paper_policies
 from repro_torch.core.shard import ShardedSemanticCache
 from repro_torch.core.workload import TABLE1_WORKLOAD, WorkloadGenerator
+from repro_torch.distributed.context import Dist
+from repro_torch.launch.sharding import shard_tree
 from repro_torch.models.model import Model
 from repro_torch.obs import (TraceRecorder, coverage_fraction, prometheus_text,
                              span_accounting, telemetry_report)
@@ -84,11 +86,29 @@ def run_serving(cfg, *, n_requests: int, cache_kind: str = "hybrid",
                 telemetry_jsonl: str | None = None,
                 telemetry_prom: str | None = None,
                 device: str | torch.device | None = None,
+                dist: Dist | None = None,
                 log=print) -> dict:
     """Serve ``n_requests`` of Table-1 traffic; ``device`` None means the
-    card (cache index and model), ``use_device=False`` the host search."""
-    model = Model(cfg, device=device)
-    params = model.init_params(seed)
+    card (cache index and model), ``use_device=False`` the host search.
+    Under a mesh (``dist``, called on every rank) the model's weights are
+    this rank's blocks of the seeded ones in the serving plan; rank 0 holds
+    the cache and serves, the others follow it (``ServingEngine.follow``)
+    and return {"generated": ...}. ``generated`` (every result has it)
+    holds each model-served request's tokens (n, new) in the order they
+    were generated."""
+    model = Model(cfg, device=device, dist=dist)
+    if model.meshed:
+        full = Model(cfg, device=device).init_params(seed)
+        params = shard_tree(full, model.serve_plan, model.dist)
+        del full
+        if torch.distributed.get_rank() != 0:
+            engine = ServingEngine(model, params, None, max_batch=max_batch,
+                                   prompt_len=prompt_len, max_new_tokens=max_new_tokens)
+            batches = engine.follow()
+            return {"generated": np.concatenate(batches) if batches else
+                    np.zeros((0, max_new_tokens), np.int32)}
+    else:
+        params = model.init_params(seed)
     controller = AdaptiveController()
     policies = PolicyEngine(paper_policies(), controller=controller)
 
@@ -119,12 +139,15 @@ def run_serving(cfg, *, n_requests: int, cache_kind: str = "hybrid",
     queries = gen.generate(n_requests)
     rng = np.random.default_rng(seed)
     t0 = time.time()
+    responses = []
     for q in queries:
         toks = rng.integers(2, cfg.vocab_size, size=prompt_len)
         engine.submit(q.text, q.category, toks)
         if len(engine.queue) >= max_batch:
-            engine.step()
-    engine.drain()
+            responses += engine.step()
+    responses += engine.drain()
+    engine.close()
+    generated = [r.tokens for r in responses if r.tokens is not None]
     wall = time.time() - t0
     st = engine.stats
     log(f"[serve] {st.served} served, hit_rate={st.hit_rate:.3f}, "
@@ -192,7 +215,9 @@ def run_serving(cfg, *, n_requests: int, cache_kind: str = "hybrid",
             "per_category": snap,
             "replica_sets": replica_sets,
             "telemetry": tele,
-            "index_sync": dict(sync) if sync is not None else None}
+            "index_sync": dict(sync) if sync is not None else None,
+            "generated": (np.stack(generated) if generated else
+                          np.zeros((0, max_new_tokens), np.int32))}
 
 
 def main():

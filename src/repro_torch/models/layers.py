@@ -16,6 +16,8 @@ import math
 
 import torch
 
+from repro_torch.distributed import collectives as coll
+
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -50,11 +52,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
+           w_down: torch.Tensor, dist=None, axis=None) -> torch.Tensor:
     g = x @ w_gate.to(x.dtype)
     u = x @ w_up.to(x.dtype)
     h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
-    return h @ w_down.to(x.dtype)
+    return row_parallel(h, w_down, dist, axis)
+
+
+def row_parallel(a: torch.Tensor, w: torch.Tensor, dist=None, axis=None) -> torch.Tensor:
+    """a @ w (w 2-D) in a's dtype. Where w's rows split over ``axis`` (a
+    mesh's tensor parallelism) each rank's product is a partial sum: it is
+    taken in fp32 (the products of a's and w's values, summed in fp32, as
+    one device's bf16 product accumulates) and the partials are summed
+    over ``axis`` in fp32, so the result rounds to a's dtype once, as one
+    device's does. Without ``axis`` the plain product."""
+    if axis is None:
+        return a @ w.to(a.dtype)
+    part = a.to(torch.float32) @ w.to(torch.float32)
+    return coll.reduce_from(part, dist, axis).to(a.dtype)
 
 
 # ---------------------------------------------------------------------------

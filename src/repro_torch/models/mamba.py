@@ -30,14 +30,24 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.context import P
 from repro_torch.kernels import ops
+from repro_torch.models.layers import row_parallel
 
 
-def _ssm_params(x: torch.Tensor, p: dict, cfg):
-    """x (B, L, di) → dt (B, L, di), B/C (B, L, N) fp32, A (di, N)."""
+def _ssm_params(x: torch.Tensor, p: dict, cfg, dist=None, axis=None):
+    """x (B, L, di) → dt (B, L, di), B/C (B, L, N) fp32, A (di, N). Under
+    tensor parallelism (``axis``) x and the weights are this rank's
+    channels, and the x-projection's partial sums are reduced over it."""
     dt_rank = p["w_dt"].shape[0]
     N = cfg.ssm_d_state
-    proj = x @ p["w_x_proj"].to(x.dtype)
+    if axis is None:
+        proj = x @ p["w_x_proj"].to(x.dtype)
+    else:
+        part = x.to(torch.float32) @ p["w_x_proj"].to(x.dtype).to(torch.float32)
+        # every rank reads the whole sum, then uses it on its own channels
+        proj = coll.copy_to(coll.reduce_from(part, dist, axis), dist, axis).to(x.dtype)
     dt_in, Bc, Cc = proj.to(torch.float32).split([dt_rank, N, N], dim=-1)
     dt = F.softplus(dt_in @ p["w_dt"].to(torch.float32) + p["dt_bias"])
     A = -torch.exp(p["A_log"].to(torch.float32))
@@ -55,32 +65,69 @@ def _conv1d_causal(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out + b.to(x.dtype)
 
 
-def mamba_mix(x: torch.Tensor, p: dict, cfg, h0=None, conv0=None, h_out=None):
+def mamba_mix(x: torch.Tensor, p: dict, cfg, h0=None, conv0=None, h_out=None,
+              dist=None, axis=None):
     """Core SSM mixer. x (B, L, di) (the in-projection's x half).
     Returns (y (B, L, di), h_final (B, di, N) fp32, conv_tail (B, K-1, di));
-    ``h_out`` (may be ``h0``) receives h_final in place."""
+    ``h_out`` (may be ``h0``) receives h_final in place. Under ``axis``
+    di is this rank's channels (``_ssm_params``)."""
     K = cfg.ssm_d_conv
     xc = _conv1d_causal(x, p["conv_w"], p["conv_b"], conv0)
     prev = conv0 if conv0 is not None else x.new_zeros((x.shape[0], K - 1, x.shape[2]))
     conv_tail = torch.cat([prev.to(x.dtype), x], dim=1)[:, -(K - 1):]
     xc = F.silu(xc.to(torch.float32)).to(x.dtype)
-    dt, Bc, Cc, A = _ssm_params(xc, p, cfg)
+    dt, Bc, Cc, A = _ssm_params(xc, p, cfg, dist, axis)
     y, h_final = ops.mamba_scan(xc, dt, A, Bc, Cc, p["D"], h0, h_out=h_out)
     return y, h_final, conv_tail
 
 
+# Each weight's layout on a model rank's channels (None: the axis).
+_CHANNEL_LAYOUT = {"w_in": (None, "c"), "conv_w": (None, "c"), "conv_b": ("c",),
+                   "w_x_proj": ("c", None), "w_dt": (None, "c"), "dt_bias": ("c",),
+                   "A_log": ("c", None), "D": ("c",), "w_out": ("c", None)}
+
+
+def _channel_weights(p: dict, pspec: dict | None, dist, cfg):
+    """The block's weights on this rank's channels and the axis they split
+    over: without a mesh (``pspec`` None) ``p`` and None; under one, each
+    weight brought from its stored layout to ``_CHANNEL_LAYOUT`` over
+    ``model`` where d_inner divides it and the plan splits ``conv_w``,
+    whole otherwise (every model rank runs every channel)."""
+    if pspec is None:
+        return p, None
+    M = dist.model_axis
+    split = (cfg.ssm_d_inner % dist.n_model == 0 and len(pspec["conv_w"]) > 1
+             and pspec["conv_w"][1] == M)
+    axis = M if split else None
+    want = {k: P(*(axis if a == "c" else None for a in lay))
+            for k, lay in _CHANNEL_LAYOUT.items()}
+    return {k: coll.fetch(p[k], pspec[k], want[k], dist) for k in want}, axis
+
+
 def mamba_block(x: torch.Tensor, p: dict, cfg, state: dict | None = None,
-                out_state: dict | None = None):
+                out_state: dict | None = None, *, dist=None, pspec: dict | None = None):
     """Full Mamba block. x (B, L, d) → (B, L, d), new state. ``state``
     ({"h", "conv"}, or None for zeros) is the carried state; ``out_state``
-    (same layout) receives the new one in place and is returned."""
-    xs, z = (x @ p["w_in"].to(x.dtype)).chunk(2, dim=-1)
+    (same layout) receives the new one in place and is returned. Under a
+    mesh (``dist``, ``pspec`` the block's specs) the state is this rank's
+    channels' block (see the module's docstring)."""
+    p, axis = _channel_weights(p, pspec, dist, cfg)
+    x = coll.copy_to(x, dist, axis)
+    xz = x @ p["w_in"].to(x.dtype)
+    if axis is None:
+        xs, z = xz.chunk(2, dim=-1)
+    else:
+        di, n = cfg.ssm_d_inner, p["conv_w"].shape[1]
+        full = coll.gather(xz, xz.dim() - 1, dist, axis, sum_grad=True)
+        lo = dist.coord(axis) * n
+        xs, z = full[..., lo:lo + n], full[..., di + lo:di + lo + n]
     h0 = state["h"] if state is not None else None
     conv0 = state["conv"] if state is not None else None
     y, h_final, conv_tail = mamba_mix(xs, p, cfg, h0=h0, conv0=conv0,
-                                      h_out=None if out_state is None else out_state["h"])
+                                      h_out=None if out_state is None else out_state["h"],
+                                      dist=dist, axis=axis)
     y = y * F.silu(z.to(torch.float32)).to(y.dtype)
-    out = y @ p["w_out"].to(y.dtype)
+    out = row_parallel(y, p["w_out"], dist, axis)
     if out_state is None:
         return out, {"h": h_final, "conv": conv_tail}
     out_state["conv"].copy_(conv_tail)

@@ -69,6 +69,20 @@ the rows over ``model`` as well and runs full-width experts. The drops
 depend on the routing alone: ``kept_pairs`` gives them from a rank's
 expert ids, for callers that count them; the FFN keeps no record.
 
+Serving under a mesh (``moe_apply`` with ``rows``, the axes this rank's
+rows split over: ``launch.sharding.batch_spec`` of the serving batch,
+None where every rank holds every row) follows the reference's
+dispatch on the global token count: EP where it splits over the token
+shards, every rank then taking its block of replicated rows and
+gathering the output back (EP drops at capacity, so choosing it where
+the reference does not would change the result); otherwise, outside
+autograd, each rank runs its stored experts (its ``data`` block, its
+``model`` slice of their width) on every token of its batch line and
+the partial outputs are summed over the axes the experts are stored on,
+in rank order: the reference's "every device computes its expert shard
+for all tokens", with no expert ever gathered. Training keeps its dense
+path (``_moe_dense_dist``).
+
 Training: on the CPU the whole FFN, the Switch aux loss included, is
 differentiable (the loop's products, the sort's values, the index ops).
 On the card the backward needs one of ``torch._grouped_mm``, which a
@@ -87,7 +101,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import collectives as coll
-from repro_torch.distributed.context import P
+from repro_torch.distributed.context import P, axis_names
 
 
 def _top_k(x, router_w, cfg, e_pad: int):
@@ -400,25 +414,66 @@ def _moe_dense_dist(x, p, ps, cfg, dist):
     return _dense_combine(x, ids, weights, full, cfg), aux
 
 
-def moe_apply(x: torch.Tensor, p: dict, cfg, dist=None, *, pspec: dict | None = None
-              ) -> tuple[torch.Tensor, torch.Tensor]:
+def _moe_dense_sharded(x, p, ps, cfg, dist, rows):
+    """The dense path in serving (no autograd): every token of this rank's
+    batch line (its rows gathered over ``rows``) routed once, this rank's
+    stored experts run on all of them in fp32 (their ``model`` slice of
+    the FFN width: silu(g)·u is per column, the down product a partial
+    sum), the partials summed over the experts' storage axes in rank
+    order, this rank's rows taken back. Returns (y, the batch line's aux,
+    which serving discards)."""
+    router = coll.fetch(p["router"], ps["router"], P(), dist)
+    xa = coll.fetch(x, P(rows), P(), dist)
+    ids, weights, aux = route(xa, router, cfg)
+    combine = torch.zeros(xa.shape[0], cfg.n_experts, dtype=torch.float32, device=x.device)
+    combine.scatter_add_(1, ids.long(), weights)
+    spec = ps["w_gate"]
+    e_loc = p["w_gate"].shape[0]
+    e0 = dist.coord(spec[0]) * e_loc
+    xf = xa.to(torch.float32)
+    y = torch.zeros_like(xf)
+    for e in range(e_loc):
+        g = xf @ p["w_gate"][e].to(torch.float32)
+        u = xf @ p["w_up"][e].to(torch.float32)
+        y += combine[:, e0 + e:e0 + e + 1] * (
+            (F.silu(g) * u) @ p["w_down"][e].to(torch.float32))
+    stored = set(axis_names(spec[0]) + axis_names(spec[2]))
+    axes = tuple(a for a in dist.mesh.mesh_dim_names if a in stored)
+    y = coll.all_reduce(y, dist, axes or None).to(x.dtype)
+    return coll.fetch(y, P(), P(rows), dist), aux
+
+
+def moe_apply(x: torch.Tensor, p: dict, cfg, dist=None, *, pspec: dict | None = None,
+              rows=...) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) or (T, d) -> (y of x's shape, aux). Without a mesh the
     routed path. Under a mesh (``p`` this rank's blocks, ``pspec`` their
-    specs, x this rank's rows) the reference's dispatch: EP, token-
-    parallel for small experts (``d_ff_expert < 128 · n_model``), where
-    there is more than one data shard and the global tokens split over the
-    token shards; every expert on every token otherwise. aux is then this
-    rank's term of the global aux (``moe_ffn_ep``)."""
+    specs, x this rank's rows) the reference's dispatch on the global
+    token count: EP, token-parallel for small experts (``d_ff_expert <
+    128 · n_model``), where there is more than one data shard and the
+    global tokens split over the token shards; every expert on every token
+    otherwise. Training leaves ``rows`` out: the rows split over the batch
+    axes, the dense path is ``_moe_dense_dist`` and aux is this rank's
+    term of the global aux (``moe_ffn_ep``). Serving passes ``rows``, the
+    axes its rows split over (None: replicated), and takes
+    ``_moe_dense_sharded``."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     if dist is None or dist.mesh is None:
         y, aux = moe_ffn_routed(x2, p, cfg)
         return y.reshape(shape), aux
+    batch = dist.batch_axes
+    serving = rows is not ...
+    rows = rows if serving else batch
     tp = dist.n_model > 1 and cfg.d_ff_expert < 128 * dist.n_model
     tok_shards = dist.n_pod * dist.n_data * (dist.n_model if tp else 1)
-    t_global = x2.shape[0] * dist.n_pod * dist.n_data
+    t_global = x2.shape[0] * dist.axis_size(rows)
     if dist.n_data > 1 and t_global % tok_shards == 0:
-        y, aux = moe_ffn_ep(x2, p, cfg, dist, token_parallel=tp, pspec=pspec)
+        # EP on this rank's block of the tokens over the batch axes
+        xs = coll.fetch(x2, P(rows), P(batch), dist)
+        y, aux = moe_ffn_ep(xs, p, cfg, dist, token_parallel=tp, pspec=pspec)
+        y = coll.fetch(y, P(batch), P(rows), dist)
+    elif serving:
+        y, aux = _moe_dense_sharded(x2, p, pspec, cfg, dist, rows)
     else:
         y, aux = _moe_dense_dist(x2, p, pspec, cfg, dist)
     return y.reshape(shape), aux

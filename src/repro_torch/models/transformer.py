@@ -57,7 +57,8 @@ taken as they are (``_tp_weights``).
   reduce-scattered back into the blocks;
 * attention: ``wq`` / ``wk`` / ``wv`` column-split over ``model`` (local
   heads Hq / n_model and Hkv / n_model, ``flash_attention`` on them),
-  ``wo`` row-split, the partial outputs all-reduced over ``model``. Where
+  ``wo`` row-split, the partial outputs all-reduced over ``model`` in
+  fp32 (``layers.row_parallel``: one rounding, as one device's product). Where
   the heads (Hq or Hkv) do not divide the model axis (the plan's
   "replicated" note), attention runs replicated over it: every model rank
   gathers the whole projections and computes every head. That is the
@@ -88,7 +89,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (dtype_of, init_attention, init_mamba, init_mlp,
-                                       init_moe, rms_norm, swiglu)
+                                       init_moe, rms_norm, row_parallel, swiglu)
 
 
 @dataclass(frozen=True)
@@ -197,14 +198,65 @@ def _tp_weights(block: dict, pblock: dict | None, dist, cols, rows):
     return {k: coll.fetch(block[k], pblock[k], want[k], dist) for k in want}, axis
 
 
+def _own_heads(t: torch.Tensor, dist, axis) -> torch.Tensor:
+    """This model rank's block of the heads (dim 2, or 1 of a (B, H, dh)
+    tensor) of a tensor that holds every head; as it is without ``axis``."""
+    if axis is None:
+        return t
+    dim = 2 if t.dim() == 4 else 1
+    n = t.shape[dim] // dist.n_model
+    return t.narrow(dim, dist.coord(axis) * n, n)
+
+
+def _all_heads(t: torch.Tensor, dist, axis) -> torch.Tensor:
+    """Every head (dim 2) of a (B, S, H_loc, dh) tensor of local heads,
+    gathered over ``axis`` (serving: outside autograd)."""
+    return t if axis is None else coll.gather_value(t, 2, dist, axis)
+
+
+def _first_row(cache: torch.Tensor, dist, seq_axis) -> int:
+    """The absolute position of this rank's first cache row."""
+    return 0 if seq_axis is None else dist.coord(seq_axis) * cache.shape[1]
+
+
+def _write_span(cache: torch.Tensor, new: torch.Tensor, offset: int, dist, seq_axis) -> None:
+    """Rows [offset, offset + S) of every sequence (new (B, S, Hkv, dh)),
+    the part of them this rank's block of the cache's rows holds."""
+    lo = _first_row(cache, dist, seq_axis)
+    a = max(offset, lo)
+    b = min(offset + new.shape[1], lo + cache.shape[1])
+    if a < b:
+        cache[:, a - lo:b - lo] = new[:, a - offset:b - offset].to(cache.dtype)
+
+
+def _write_row(cache: torch.Tensor, new: torch.Tensor, kv_len, dist, seq_axis) -> None:
+    """The new token's row (new (B, Hkv, dh)) at position kv_len[b] of each
+    sequence, in place (the reference's .at[bidx, kv_len].set builds a new
+    cache), on the rank whose block holds that row: its rank computes
+    where with no host read, so a captured step stays valid."""
+    bidx = torch.arange(cache.shape[0], device=cache.device)
+    if seq_axis is None:
+        cache[bidx, kv_len] = new.to(cache.dtype)
+        return
+    S = cache.shape[1]
+    local = kv_len.long() - _first_row(cache, dist, seq_axis)
+    mine = ((local >= 0) & (local < S))[:, None, None]
+    at = local.clamp(0, S - 1)
+    cache[bidx, at] = torch.where(mine, new.to(cache.dtype), cache[bidx, at])
+
+
 def attn_sublayer(x, sp, cfg, spec: SubLayerSpec, *, mode: str, positions,
                   cache_k=None, cache_v=None, kv_len=None, kv_offset: int = 0,
-                  dist=None, pspec=None):
+                  dist=None, pspec=None, kvspec=None):
     """x (B, S, d) -> x + attention. ``cache_k``/``cache_v`` are this
     layer's (B, S_max, Hkv, dh) cache, written in place (prefill, decode).
-    Under a mesh (train mode; ``pspec`` the layer's specs) local heads
-    where Hq and Hkv both divide ``model``, replicated over it otherwise
-    (``_tp_weights``)."""
+    Under a mesh (``pspec`` the layer's specs) local heads where Hq and
+    Hkv both divide ``model``, replicated over it otherwise
+    (``_tp_weights``); in prefill and decode the cache is this rank's
+    block in the layout of ``kvspec`` (``launch.sharding.cache_specs``):
+    local heads, or every head and this rank's block of the sequence,
+    which a decode step attends block by block and merges (see the
+    module's docstring)."""
     w, axis = _tp_weights(sp["mix"], pspec and pspec["mix"], dist,
                           ("wq", "wk", "wv"), ("wo",))
     h = coll.copy_to(rms_norm(x, sp["ln_mix"], cfg.norm_eps), dist, axis)
@@ -213,75 +265,128 @@ def attn_sublayer(x, sp, cfg, spec: SubLayerSpec, *, mode: str, positions,
     # so takes RoPE at cfg.rope_theta on top of its additive sinusoid.
     theta = cfg.rope_theta if cfg.family != "encdec" else None
     q, k, v = attn.qkv_project(h, w, positions, theta)
+    # the cache's KV head and sequence axes (its spec: P(L, B, S, Hkv, dh))
+    head_axis, seq_axis = (kvspec[3], kvspec[2]) if kvspec is not None else (None, None)
+    # the cache holds every head where it does not split them as the weights do
+    gather = axis if head_axis is None else None
 
     if mode == "decode":
-        # The new token's K/V go into row kv_len[b] of each sequence, in
-        # place (the reference's .at[bidx, kv_len].set builds a new cache).
-        bidx = torch.arange(x.shape[0], device=x.device)
-        cache_k[bidx, kv_len] = k[:, 0].to(cache_k.dtype)
-        cache_v[bidx, kv_len] = v[:, 0].to(cache_v.dtype)
-        out = attn.attend_decode(q[:, 0], cache_k, cache_v, kv_len + 1,
-                                 window=spec.window, softcap=cfg.attn_softcap)
-        return x + attn.out_project(out, w)[:, None, :].to(x.dtype)
+        q, k, v = (_all_heads(t, dist, gather) for t in (q, k, v))
+        _write_row(cache_k, k[:, 0], kv_len, dist, seq_axis)
+        _write_row(cache_v, v[:, 0], kv_len, dist, seq_axis)
+        if seq_axis is None:
+            out = attn.attend_decode(q[:, 0], cache_k, cache_v, kv_len + 1,
+                                     window=spec.window, softcap=cfg.attn_softcap)
+        else:
+            # every query head over this rank's rows, merged over the shards
+            first = torch.full_like(kv_len, _first_row(cache_k, dist, seq_axis))
+            o, lse = attn.attend_decode(q[:, 0], cache_k, cache_v, kv_len + 1,
+                                        window=spec.window, softcap=cfg.attn_softcap,
+                                        first_row=first, return_lse=True)
+            out = attn.merge_partials(coll.gather_value(o[None], 0, dist, seq_axis),
+                                      coll.gather_value(lse[None], 0, dist, seq_axis))
+            out = out.to(q.dtype)                 # rounded once, as one call's output
+        out = _own_heads(out, dist, gather)                  # wo's rows on this rank
+        return x + _out_project(out, w, dist, axis)[:, None, :].to(x.dtype)
 
     if mode == "prefill":
         # In-place write of this chunk's K/V at its offset (the reference's
-        # dynamic_update_slice).
+        # dynamic_update_slice): the rows and heads this rank's block holds.
         S = x.shape[1]
-        cache_k[:, kv_offset:kv_offset + S] = k.to(cache_k.dtype)
-        cache_v[:, kv_offset:kv_offset + S] = v.to(cache_v.dtype)
+        _write_span(cache_k, _all_heads(k, dist, gather), kv_offset, dist, seq_axis)
+        _write_span(cache_v, _all_heads(v, dist, gather), kv_offset, dist, seq_axis)
         if kv_offset > 0:
             # Chunked prefill: attend against everything cached so far.
-            k = cache_k[:, :kv_offset + S].to(q.dtype)
-            v = cache_v[:, :kv_offset + S].to(q.dtype)
+            k = _own_heads(coll.gather_value(cache_k, 1, dist, seq_axis)[:, :kv_offset + S],
+                           dist, gather).to(q.dtype)
+            v = _own_heads(coll.gather_value(cache_v, 1, dist, seq_axis)[:, :kv_offset + S],
+                           dist, gather).to(q.dtype)
     out = attn.attend_prefill(q, k, v, causal=spec.causal, window=spec.window,
                               softcap=cfg.attn_softcap, kv_offset=kv_offset)
-    return x + coll.reduce_from(attn.out_project(out, w), dist, axis).to(x.dtype)
+    return x + _out_project(out, w, dist, axis).to(x.dtype)
 
 
-def cross_sublayer(x, sp, cfg, enc_k, enc_v):
+def _out_project(out: torch.Tensor, w: dict, dist, axis) -> torch.Tensor:
+    """attn (..., H, dh) @ wo (H, dh, d): ``attn.out_project``, reduced over
+    ``axis`` in fp32 where ``wo``'s rows split over it (``row_parallel``)."""
+    if axis is None:
+        return attn.out_project(out, w)
+    wo = w["wo"]
+    return row_parallel(out.reshape(*out.shape[:-2], -1), wo.reshape(-1, wo.shape[-1]),
+                        dist, axis)
+
+
+def cross_axis(cfg, dist, pspec) -> str | None:
+    """The axis whisper's cross-attention splits its heads over: ``model``
+    where the plan splits ``wq`` over it and the KV heads divide it, None
+    (every head on every model rank) otherwise or without a mesh."""
+    if pspec is None:
+        return None
+    M = dist.model_axis
+    split = _split_on(pspec["cross"]["wq"], 1, M) and cfg.n_kv_heads % dist.n_model == 0
+    return M if split else None
+
+
+def cross_sublayer(x, sp, cfg, enc_k, enc_v, dist=None, pspec=None, *,
+                   own_heads: bool = False):
     """Whisper's decoder cross-attention: x (B, S, d) -> x + attention of
     its queries over the encoder's K/V (B, enc_ctx, Hkv, dh), written by
     prefill. Non-causal, no window, no softcap, no RoPE. As in the
     reference, prefill and decode both take ``attend_prefill``: a decode
     step's cross-attention is a flash_attention call with Sq = 1 (rounding
-    P to bf16 as the reference's prefill path does), not decode_attention."""
-    h = rms_norm(x, sp["ln_cross"], cfg.norm_eps)
+    P to bf16 as the reference's prefill path does), not decode_attention.
+    Under a mesh (``pspec`` the layer's specs) ``wq`` splits over
+    ``model`` (``cross_axis``), each rank attends with its own heads of
+    the K/V (the cache's hold every head, ``launch.sharding.enc_kv_spec``;
+    training passes its own heads, ``own_heads``) and ``wo``'s partial
+    outputs are reduced over ``model``."""
+    w, axis = sp["cross"], cross_axis(cfg, dist, pspec)
+    if pspec is not None:
+        w = {k: coll.fetch(sp["cross"][k], pspec["cross"][k], want, dist)
+             for k, want in (("wq", P(None, axis)), ("wo", P(axis)))}
+    if not own_heads:
+        enc_k, enc_v = _own_heads(enc_k, dist, axis), _own_heads(enc_v, dist, axis)
+    h = coll.copy_to(rms_norm(x, sp["ln_cross"], cfg.norm_eps), dist, axis)
     B, S, d = h.shape
-    wq = sp["cross"]["wq"]
+    wq = w["wq"]
     q = (h @ wq.to(h.dtype).reshape(d, -1)).view(B, S, wq.shape[1], wq.shape[2])
     out = attn.attend_prefill(q, enc_k, enc_v, causal=False)
-    return x + attn.out_project(out, sp["cross"]).to(x.dtype)
+    return x + _out_project(out, w, dist, axis).to(x.dtype)
 
 
-def mamba_sublayer(x, sp, cfg, *, state=None, fresh: bool = False):
+def mamba_sublayer(x, sp, cfg, *, state=None, fresh: bool = False, dist=None, pspec=None):
     """x (B, L, d) -> x + Mamba block. ``state`` is this layer's {"h",
     "conv"} cache, read (unless ``fresh``: a prefill's first chunk starts
-    from zeros) and written in place."""
+    from zeros) and written in place. Under a mesh (``pspec`` the layer's
+    specs) tensor-parallel over ``model`` (``models/mamba.py``), ``state``
+    this rank's channels' block."""
     h = rms_norm(x, sp["ln_mix"], cfg.norm_eps)
     out, _ = mam.mamba_block(h, sp["mix"], cfg, state=None if fresh else state,
-                             out_state=state)
+                             out_state=state, dist=dist, pspec=pspec and pspec["mix"])
     return x + out.to(x.dtype)
 
 
 def sublayer_apply(x, sp, cfg, spec: SubLayerSpec, dist=None, *, mode: str, positions,
                    cache=None, slot: int = 0, kv_len=None, kv_offset: int = 0,
-                   enc_kv=None, pspec=None):
+                   enc_kv=None, pspec=None, cspecs=None):
     """One layer: its mixer, its cross-attention if it has one, then its
     MLP if it has one -> (x, aux), aux its MoE load-balancing loss (fp32,
     0 without experts). ``cache`` is the whole stacked cache and ``slot``
     the layer's index into its kind's tensors (``cache_slots``; an encdec
     decoder layer's index into ``ck``/``cv`` too, every layer of it being
     attention). In train mode an encdec layer's cross K/V come as
-    ``enc_kv`` = (k, v), each (B, enc_ctx, Hkv, dh). Under a mesh
-    (``dist`` with a mesh: train mode, attention layers) ``sp`` holds this
-    rank's blocks and ``pspec`` their specs; aux is then this rank's term
-    of the global loss (``moe.moe_apply``)."""
+    ``enc_kv`` = (k, v), each (B, enc_ctx, Hkv, dh), under a mesh this
+    rank's heads of them (``cross_axis``). Under a mesh
+    (``dist`` with a mesh) ``sp`` holds this rank's blocks and ``pspec``
+    their specs; in prefill and decode ``cache`` holds this rank's blocks
+    and ``cspecs`` their specs (``launch.sharding.cache_specs``), whose
+    batch entry is also the axes the rows split over; in train mode the
+    rows split over the batch axes and aux is this rank's term of the
+    global loss (``moe.moe_apply``)."""
     meshed = dist is not None and dist.mesh is not None
-    if meshed and (pspec is None or mode != "train" or spec.kind != "attn" or spec.cross):
-        raise NotImplementedError(f"{cfg.name}: under a mesh the port runs train-mode "
-                                  f"attention layers only (a {spec.kind} layer in "
-                                  f"{mode} mode; ROADMAP queue 1 items 6-7)")
+    if meshed and (pspec is None or (mode != "train" and cspecs is None)):
+        raise ValueError(f"{cfg.name}: a layer under a mesh needs its specs (pspec) "
+                         f"and, in {mode} mode, the cache's (cspecs)")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.kind == "attn":
         ck = cv = None
@@ -289,28 +394,30 @@ def sublayer_apply(x, sp, cfg, spec: SubLayerSpec, dist=None, *, mode: str, posi
             ck, cv = cache["k"][slot], cache["v"][slot]
         x = attn_sublayer(x, sp, cfg, spec, mode=mode, positions=positions,
                           cache_k=ck, cache_v=cv, kv_len=kv_len, kv_offset=kv_offset,
-                          dist=dist, pspec=pspec)
+                          dist=dist, pspec=pspec, kvspec=cspecs and cspecs["k"])
     else:
         state = None
         if cache is not None:
             state = {"h": cache["h"][slot], "conv": cache["conv"][slot]}
-        x = mamba_sublayer(x, sp, cfg, state=state,
+        x = mamba_sublayer(x, sp, cfg, state=state, dist=dist, pspec=pspec,
                            fresh=mode == "prefill" and kv_offset == 0)
     if spec.cross and cache is not None:
-        x = cross_sublayer(x, sp, cfg, cache["ck"][slot], cache["cv"][slot])
+        x = cross_sublayer(x, sp, cfg, cache["ck"][slot], cache["cv"][slot], dist, pspec)
     elif spec.cross and enc_kv is not None:
-        x = cross_sublayer(x, sp, cfg, *enc_kv)
+        x = cross_sublayer(x, sp, cfg, *enc_kv, dist, pspec, own_heads=True)
     if spec.mlp == "dense":
         # SwiGLU: w_gate / w_up columns over ``model``, w_down rows, where
         # d_ff divides it (``_tp_weights``)
         w, axis = _tp_weights(sp["mlp"], pspec and pspec["mlp"], dist,
                               ("w_gate", "w_up"), ("w_down",))
         h = coll.copy_to(rms_norm(x, sp["ln_mlp"], cfg.norm_eps), dist, axis)
-        y = swiglu(h, w["w_gate"], w["w_up"], w["w_down"])
-        x = x + coll.reduce_from(y, dist, axis).to(x.dtype)
+        y = swiglu(h, w["w_gate"], w["w_up"], w["w_down"], dist, axis)
+        x = x + y.to(x.dtype)
     elif spec.mlp == "moe":
         h = rms_norm(x, sp["ln_mlp"], cfg.norm_eps)
-        y, aux = moe_mod.moe_apply(h, sp["mlp"], cfg, dist, pspec=pspec and pspec["mlp"])
+        rows = ... if cspecs is None else next(iter(cspecs.values()))[1]
+        y, aux = moe_mod.moe_apply(h, sp["mlp"], cfg, dist, pspec=pspec and pspec["mlp"],
+                                   rows=rows)
         x = x + y.to(x.dtype)
     return x, aux
 
@@ -335,15 +442,17 @@ def _remat(layer_fn, x, remat: str):
 
 def stack_apply(x, layers: list[dict], cfg, dist=None, *, mode: str, positions,
                 cache=None, kv_len=None, kv_offset: int = 0, pattern=None, enc_kv=None,
-                specs=None):
+                specs=None, cspecs=None):
     """Run every layer over x. ``cache`` (``init_cache``'s dict) is updated
     in place in prefill and decode modes, which return x; train mode takes
     none and returns (x, aux), aux the summed MoE load-balancing loss,
     each layer under ``cfg.remat``. ``enc_kv`` (train mode, encdec) holds
     each layer's cross (k, v). ``pattern`` (default ``layer_pattern(cfg)``)
     gives each layer's spec: whisper's encoder passes non-causal attention
-    layers. Under a mesh (``dist``, train mode) ``layers`` are this rank's
-    blocks and ``specs`` their specs (the plan's ``"layers"``)."""
+    layers. Under a mesh (``dist``) ``layers`` are this rank's blocks and
+    ``specs`` their specs (the plan's ``"layers"``), and in prefill and
+    decode ``cache`` holds this rank's blocks in the layout ``cspecs``
+    (``launch.sharding.cache_specs``)."""
     if pattern is None:
         pattern = layer_pattern(cfg)
     if mode == "train":
@@ -358,7 +467,8 @@ def stack_apply(x, layers: list[dict], cfg, dist=None, *, mode: str, positions,
             # collectives x is already this rank's rows, nothing to pin)
             aux_total = aux_total + aux
         return x, aux_total
-    for sp, spec, slot in zip(layers, pattern, cache_slots(pattern)):
-        x, _ = sublayer_apply(x, sp, cfg, spec, mode=mode, positions=positions,
-                              cache=cache, slot=slot, kv_len=kv_len, kv_offset=kv_offset)
+    for i, (sp, spec, slot) in enumerate(zip(layers, pattern, cache_slots(pattern))):
+        x, _ = sublayer_apply(x, sp, cfg, spec, dist, mode=mode, positions=positions,
+                              cache=cache, slot=slot, kv_len=kv_len, kv_offset=kv_offset,
+                              pspec=None if specs is None else specs[i], cspecs=cspecs)
     return x

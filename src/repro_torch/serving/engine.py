@@ -44,10 +44,26 @@ The end-to-end path (``repro_torch.launch.serve``):
 
 Latency/queue-depth observations feed the ``AdaptiveController`` so cache
 policies relax under load (§7.5).
+
+A meshed model (``Model(cfg, dist=...)``, one process a rank) keeps the
+reference's shape: one controller with one cache in front of the mesh.
+Rank 0's engine holds the cache and runs ``step()``; every other rank's
+engine holds none and runs ``follow()``. For each miss batch rank 0
+broadcasts its size and prompt tokens, every rank runs ``generate`` on its
+rows of it (``Model.rows``), and the tokens come back to every rank in one
+gather after the last step; ``close()`` on rank 0 releases the followers.
+The other ranks decide nothing themselves: a TTL read at different
+instants on each rank would give different miss batches and deadlock the
+collectives. Where the model's collectives stage through host memory
+(gloo on the card), a decode step syncs with the host and cannot be
+captured, so the engine runs its programs eagerly (``graphs=False``,
+the reason logged once and kept in ``eager_reason``); graphs for a meshed
+model wait for NCCL.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from dataclasses import dataclass, field
 
@@ -58,9 +74,12 @@ from repro_torch.core.cache import SemanticCache
 from repro_torch.core.embedding import FeatureHashEmbedder
 from repro_torch.core.graphs import CapturedProgram
 from repro_torch.core.policy import AdaptiveController, LoadSignal
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.fault import StepWatchdog
 from repro_torch.models.model import Model
 from repro_torch.obs import NULL_SPAN
+
+log = logging.getLogger(__name__)
 
 
 @dataclass
@@ -123,14 +142,22 @@ def generate(programs: CapturedProgram, model: Model, params, batch: dict,
     its decode graph, capturing both on first use. Returns the decode
     program's state: ``out`` (B, max_new) int32 tokens on the device,
     ``start`` (kv_len after prefill), and with ``finite`` a device flag
-    ANDing whether every step's logits were finite."""
+    ANDing whether every step's logits were finite. Under a mesh
+    ``batch["tokens"]`` is the global prompt, of which this rank takes its
+    rows (``Model.rows``), any other entry is this rank's rows, and the
+    state is this rank's rows."""
     V = model.cfg.vocab_size
     tokens = batch["tokens"]
     extra = {k: v for k, v in batch.items() if k != "tokens"}
+    kw = {}
+    if model.meshed:
+        kw = {"batch_size": tokens.shape[0]}
+        tokens = np.ascontiguousarray(tokens[model.rows(tokens.shape[0])])
     B = tokens.shape[0]
 
     def prefill(toks):
-        logits, cache, kv_len = model.prefill(params, {"tokens": toks, **extra}, max_len)
+        logits, cache, kv_len = model.prefill(params, {"tokens": toks, **extra}, max_len,
+                                              **kw)
         tok = logits[:, :V].argmax(-1).to(torch.int32)
         out = torch.empty((B, max_new), dtype=torch.int32, device=model.device)
         out[:, 0] = tok
@@ -166,9 +193,11 @@ def generate(programs: CapturedProgram, model: Model, params, batch: dict,
 
 class ServingEngine:
     """Queue → embed → cache lookup → model on misses → batched
-    write-back. The model runs on its own device (``model.device``)."""
+    write-back. The model runs on its own device (``model.device``).
+    Under a mesh rank 0's engine holds the cache and the other ranks'
+    hold None and ``follow()`` it (see the module's docstring)."""
 
-    def __init__(self, model: Model, params, cache: SemanticCache,
+    def __init__(self, model: Model, params, cache: SemanticCache | None,
                  *, max_batch: int = 8, prompt_len: int = 64,
                  max_new_tokens: int = 16,
                  controller: AdaptiveController | None = None,
@@ -200,8 +229,18 @@ class ServingEngine:
         self._max_len = prompt_len + max_new_tokens
         # Generation's programs (prefill and decode per miss-batch size),
         # captured for one set of weights: their graphs read its storages.
-        self.programs = CapturedProgram(model.device)
+        self.eager_reason = None
+        probe = torch.empty(0, device=model.device)
+        if model.meshed and coll.stages_through_host(probe):
+            self.eager_reason = ("the model's collectives stage through host memory "
+                                 "(gloo), so a decode step syncs with the host and "
+                                 "cannot be captured: generation runs eagerly")
+            log.info("%s: %s", model.cfg.name, self.eager_reason)
+        self.programs = CapturedProgram(model.device, graphs=self.eager_reason is None)
         self._program_params = None
+        if model.meshed and (cache is None) != (torch.distributed.get_rank() != 0):
+            raise ValueError("under a mesh rank 0's engine holds the cache and no "
+                             "other rank's does")
 
     def _generate(self, params, tokens: np.ndarray) -> np.ndarray:
         """Prefill, then greedy decode: (B, S) int32 prompt tokens -> (B,
@@ -211,9 +250,44 @@ class ServingEngine:
             self.programs.clear()
             self._program_params = params
         tokens = np.ascontiguousarray(tokens, np.int32)
+        if self.model.meshed:
+            header = torch.tensor(tokens.shape, dtype=torch.int64)
+            coll.broadcast(header)
+            coll.broadcast(torch.from_numpy(tokens))
+        return self._run(params, tokens)
+
+    def _run(self, params, tokens: np.ndarray) -> np.ndarray:
         state = generate(self.programs, self.model, params, {"tokens": tokens},
                          self._max_len, self.max_new)
-        return state["out"].cpu().numpy()
+        out = state["out"]
+        if self.model.meshed:           # every rank's rows, on every rank
+            from repro_torch.launch.sharding import batch_spec
+            dist = self.model.dist
+            out = coll.gather_value(out, 0, dist, batch_spec(dist, tokens.shape[0]))
+        return out.cpu().numpy()
+
+    def follow(self) -> list[np.ndarray]:
+        """A follower rank's loop (under a mesh, every rank but 0): each
+        miss batch rank 0's engine broadcasts is generated here on this
+        rank's rows, until rank 0's ``close()``. Returns every batch's
+        (B, new) tokens, in order."""
+        generated = []
+        while True:
+            header = torch.zeros(2, dtype=torch.int64)
+            coll.broadcast(header)
+            if int(header[0]) == 0:
+                return generated
+            tokens = torch.zeros(tuple(header.tolist()), dtype=torch.int32)
+            coll.broadcast(tokens)
+            if self.params is not self._program_params:
+                self.programs.clear()
+                self._program_params = self.params
+            generated.append(self._run(self.params, tokens.numpy()))
+
+    def close(self) -> None:
+        """Rank 0 under a mesh: release the followers (a batch of size 0)."""
+        if self.model.meshed:
+            coll.broadcast(torch.zeros(2, dtype=torch.int64))
 
     def _span(self, stage: str, **attrs):
         if self.obs is None:

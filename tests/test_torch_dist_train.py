@@ -22,8 +22,12 @@
     leaf replicated over a batch axis ends equal, bit for bit, on every
     rank. One llama run takes grad_accum 2, one has 1 kv head and d_ff
     129, so its attention and MLP run replicated over the model axis (the
-    plan's "replicated" notes). The ssm, hybrid, encdec and
-    vlm families refuse a mesh, and so does serving.
+    plan's "replicated" notes). The other families train on the mesh too
+    (2 layers; jamba its 8-layer period at capacity 8.0): falcon-mamba
+    (ssm: the Mamba block's tensor parallelism, the scan's Function on
+    local channels), jamba (hybrid: Mamba, attention and EP MoE layers),
+    whisper (encdec: the encoder and the cross-attention under tensor
+    parallelism) and llava (vlm: the patch prefix).
 (e) Elastic restore: a checkpoint written by one process restores onto
     the (2, 2) mesh (``restore_checkpoint(plan=, dist=)``), every rank's
     blocks bit for bit those of the saved leaves; then ``run_training``
@@ -43,10 +47,10 @@ from repro_torch.launch.mesh import launch_ranks
 
 # (arch, grad_accum); "llama-replicated" has 1 kv head and d_ff 129, which
 # the model axis of 2 does not divide: attention and the MLP replicated.
+# The ssm, hybrid, encdec and vlm families, one each.
+FAMILIES = ["falcon-mamba-7b", "jamba-v0.1-52b", "whisper-large-v3", "llava-next-mistral-7b"]
 ARCHS = [("llama3.2-3b", 1), ("llama3.2-3b", 2), ("granite-moe-3b-a800m", 1),
-         ("llama-replicated", 1)]
-# A family of each kind a mesh does not run yet: ssm, hybrid, encdec, vlm.
-MESHLESS = ["falcon-mamba-7b", "jamba-v0.1-52b", "whisper-large-v3", "llava-next-mistral-7b"]
+         ("llama-replicated", 1)] + [(arch, 1) for arch in FAMILIES]
 B, S, STEPS = 8, 32, 2
 
 
@@ -65,6 +69,8 @@ def _cfg(arch: str, accum: int):
         return get_config("llama3.2-3b").reduced(dtype="float32", grad_accum=accum,
                                                  n_kv_heads=1, d_ff=129)
     cfg = get_config(arch).reduced(dtype="float32", grad_accum=accum)
+    if arch in FAMILIES and cfg.family != "hybrid":
+        cfg = dataclasses.replace(cfg, n_layers=2)
     if cfg.n_experts:
         cfg = dataclasses.replace(cfg, capacity_factor=8.0)
     return cfg
@@ -77,6 +83,12 @@ def _batches(cfg):
         b = {"tokens": torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, S))),
              "labels": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))}
         b["labels"][2, :11] = -1
+        if cfg.family == "encdec":
+            b["audio"] = torch.from_numpy(
+                rng.standard_normal((B, cfg.enc_ctx, cfg.enc_dim)).astype(np.float32))
+        if cfg.family == "vlm":
+            b["patches"] = torch.from_numpy(
+                rng.standard_normal((B, cfg.n_patches, cfg.d_model)).astype(np.float32))
         out.append(b)
     return out
 
@@ -129,16 +141,6 @@ def _train_rank(rank, world):
         out[(arch, accum)] = dict(steps=steps, dropped=dropped, ep_calls=len(routed),
                                   replicated=replicated,
                                   final=_np(gather_tree(params, model.plan, dist)))
-    out["refused"] = {}
-    for arch in MESHLESS:
-        model = Model(get_config(arch).reduced(), device="cpu", dist=dist)
-        for what, call in (("loss_fn", lambda: model.loss_fn({}, {})),
-                           ("prefill", lambda: model.prefill({}, {}, 8))):
-            try:
-                call()
-                out["refused"][(arch, what)] = None
-            except NotImplementedError as exc:
-                out["refused"][(arch, what)] = str(exc)
     return out
 
 
@@ -183,15 +185,6 @@ def test_sharded_steps_match_one_process(trained, arch, accum):
             assert bool(((torch.from_numpy(got) - p1).abs() <= bound).all())
     for leaves in zip(*(r["replicated"] for r in ranks)):
         assert all(torch.equal(leaves[0], t) for t in leaves)
-
-
-@pytest.mark.parametrize("arch", MESHLESS)
-def test_other_families_refuse_a_mesh(trained, arch):
-    """Under a mesh the dense and moe families train; the others, and
-    serving, raise NotImplementedError naming their ROADMAP item."""
-    for out in trained:
-        assert "ROADMAP queue 1 item 7" in out["refused"][(arch, "loss_fn")]
-        assert "ROADMAP queue 1 item 6" in out["refused"][(arch, "prefill")]
 
 
 def _restore_rank(rank, world, saved_dir, mesh_dir):

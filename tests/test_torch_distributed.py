@@ -21,6 +21,10 @@ the reference's init (``params_from_reference``, then ``shard_tree``).
     model 2) against the reference's loss on the same mesh and the port's
     one-process loss: fp32 within 1e-5, bf16 within 5e-3 (the reference's
     own bound between its mesh and single-device losses).
+(b') The loss of reduced falcon-mamba-7b (ssm), whisper-large-v3
+    (encdec, with its audio) and llava-next-mistral-7b (vlm, with its
+    patches), 2 layers, fp32, on (data 2, model 2) against the
+    reference's meshed loss and the port's one-process loss, within 1e-5.
 (d) ``make_pp_loss`` on (pod 2, data 1, model 2) with reduced llama, 4
     layers, n_micro 4: within 1e-5 (fp32) of the reference's pipeline loss
     and of the port's sequential loss (the reference's bound is 2e-3).
@@ -51,6 +55,8 @@ from repro_torch.launch.mesh import launch_ranks
 
 ROOT = Path(__file__).resolve().parents[1]
 MOE_CASES = [(tp, cf) for tp in (True, False) for cf in (4.0, 1.0)]
+# The ssm, encdec and vlm families' sharded losses (b').
+FAMILIES = ["falcon_mamba_7b", "whisper_large_v3", "llava_next_mistral_7b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -135,6 +141,22 @@ for dtype in ("float32", "bfloat16"):
     meshed, _ = jax.jit(Model(cfg, dist22).loss_fn)(sharded, jb)
     out["loss"][dtype] = dict(params=npy(params), single=float(single), mesh=float(meshed))
 
+out["family"] = {}
+for name in FAMILIES:
+    cfg = get_config(name).reduced(n_layers=2, vocab_size=256, dtype="float32")
+    fb = dict(batch)
+    if cfg.family == "encdec":
+        fb["audio"] = rng.standard_normal((8, cfg.enc_ctx, cfg.enc_dim)).astype(np.float32)
+    if cfg.family == "vlm":
+        fb["patches"] = rng.standard_normal((8, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    fj = {k: jnp.asarray(v) for k, v in fb.items()}
+    params = Model(cfg, None).init_params(jax.random.key(0))
+    single, _ = jax.jit(Model(cfg, None).loss_fn)(params, fj)
+    sharded = jax.device_put(params, shd.param_plan(cfg, dist22, training=True).shardings(mesh22))
+    meshed, _ = jax.jit(Model(cfg, dist22).loss_fn)(sharded, fj)
+    out["family"][name] = dict(params=npy(params), batch=fb, single=float(single),
+                               mesh=float(meshed))
+
 cfg = get_config("llama3_2_3b").reduced(n_layers=4, vocab_size=256, dtype="float32")
 params = Model(cfg, None).init_params(jax.random.key(0))
 seq, _ = jax.jit(Model(cfg, None).loss_fn)(params, jb)
@@ -154,7 +176,8 @@ def reference(tmp_path_factory):
     path = tmp_path_factory.mktemp("reference") / "out.pkl"
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu",
            "XLA_FLAGS": "--xla_force_host_platform_device_count=8"}
-    code = f"CASES = {MOE_CASES!r}\nOUT = {str(path)!r}\n" + textwrap.dedent(REFERENCE)
+    code = (f"CASES = {MOE_CASES!r}\nFAMILIES = {FAMILIES!r}\nOUT = {str(path)!r}\n"
+            + textwrap.dedent(REFERENCE))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=300, env=env, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -233,9 +256,10 @@ def test_moe_ffn_ep_matches_reference(reference, moe_ranks, tp, cf):
         assert not keep.all()          # capacity 1.0 drops pairs on this seed
 
 
-def _model_rank(rank, world, loss_params, pp_params, batch):
-    """(b) the sharded granite-moe loss in fp32 and bf16 on (2, 2); (d) the
-    GPipe loss of llama on (2, 1, 2)."""
+def _model_rank(rank, world, loss_params, pp_params, batch, family):
+    """(b) the sharded granite-moe loss in fp32 and bf16 on (2, 2); (b')
+    the other families' sharded losses on (2, 2); (d) the GPipe loss of
+    llama on (2, 1, 2)."""
     from repro_torch.configs import get_config
     from repro_torch.distributed.context import Dist
     from repro_torch.launch.mesh import make_mesh
@@ -254,6 +278,13 @@ def _model_rank(rank, world, loss_params, pp_params, batch):
         local = shard_tree(params_from_reference(np_params, cfg, "cpu"), model.plan, dist)
         with torch.no_grad():
             out[dtype] = float(model.loss_fn(local, shard_batch(tb, cfg, dist))[0])
+    for name, ref in family.items():
+        cfg = get_config(name).reduced(n_layers=2, vocab_size=256, dtype="float32")
+        model = Model(cfg, device="cpu", dist=dist)
+        local = shard_tree(params_from_reference(ref["params"], cfg, "cpu"), model.plan, dist)
+        fb = {k: torch.from_numpy(v) for k, v in ref["batch"].items()}
+        with torch.no_grad():
+            out[name] = float(model.loss_fn(local, shard_batch(fb, cfg, dist))[0])
     cfg = get_config("llama3_2_3b").reduced(n_layers=4, vocab_size=256, dtype="float32")
     dist = Dist.from_mesh(make_mesh((2, 1, 2), ("pod", "data", "model"), "cpu"))
     model = Model(cfg, device="cpu", dist=dist)
@@ -268,7 +299,8 @@ def _model_rank(rank, world, loss_params, pp_params, batch):
 def model_ranks(reference):
     loss_params = {k: v["params"] for k, v in reference["loss"].items()}
     return launch_ranks(_model_rank, 4, backend="gloo", device="cpu", timeout=240,
-                        args=(loss_params, reference["pp"]["params"], reference["batch"]))
+                        args=(loss_params, reference["pp"]["params"], reference["batch"],
+                              reference["family"]))
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 5e-3)])
@@ -289,6 +321,28 @@ def test_sharded_loss_matches_reference(reference, model_ranks, dtype, tol):
     assert abs(loss - ref["mesh"]) <= tol * abs(ref["mesh"])
     assert abs(loss - single) <= tol * abs(single)
     assert abs(single - ref["single"]) <= tol * abs(ref["single"])
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_sharded_family_loss_matches_reference(reference, model_ranks, name):
+    """The ssm, encdec and vlm families' losses on (data 2, model 2): the
+    same on every rank, within 1e-5 of the reference's meshed loss and of
+    the port's one process."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import params_from_reference
+    from repro_torch.models.model import Model
+    ref = reference["family"][name]
+    cfg = get_config(name).reduced(n_layers=2, vocab_size=256, dtype="float32")
+    batch = {k: torch.from_numpy(v) for k, v in ref["batch"].items()}
+    with torch.no_grad():
+        single = float(Model(cfg, device="cpu").loss_fn(
+            params_from_reference(ref["params"], cfg, "cpu"), batch)[0])
+    losses = {out[name] for out in model_ranks}
+    assert len(losses) == 1
+    (loss,) = losses
+    assert abs(loss - ref["mesh"]) <= 1e-5 * abs(ref["mesh"])
+    assert abs(loss - single) <= 1e-5 * abs(single)
+    assert abs(single - ref["single"]) <= 1e-5 * abs(ref["single"])
 
 
 def test_pipeline_loss_matches_reference(reference, model_ranks):
