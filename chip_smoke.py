@@ -115,12 +115,12 @@ Phases (any failure exits non-zero and prints no result):
              decode step, and its peak memory;
 7. shard   — ``ShardedSemanticCache`` of 4 shards at capacity 1,048,576
              (each shard's table too), main's traffic and combinations:
-             the first 100 steps, a live ``migrate_category`` of
+             the first 50 steps, a live ``migrate_category`` of
              code_generation to another shard and ``rebalance()`` back,
              each followed by 64 probe queries of it (on flat decided as
              before the move; an HNSW shard's graph changes with the
-             move, so hnsw only logs how many differ), the last 100
-             steps. Launches per shard as in main, summed over the shards
+             move, so hnsw only logs how many differ), the last 50
+             steps (cut from 100 each for the time limit). Launches per shard as in main, summed over the shards
              (each shard captures a graph per batch bucket its
              sub-batches reach); a profiled sharded lookup's trace holds
              the launches its replays recorded. Flat decides as one cache
@@ -174,22 +174,43 @@ Phases (any failure exits non-zero and prints no result):
              input's largest |grad|) and, fp32, against a central
              difference of the kernel's own forward (FD_TOL); the forward
              timed beside its bound, the plain version's (and SDPA's), and
-             forward + backward beside theirs. Then llama3.2-3b and
-             falcon-mamba-7b at full width and 2 layers, card against CPU:
-             loss within 0.1, every gradient leaf within 0.1 of its largest.
-             Then llama3.2-3b at full width and depth (28 layers, remat
-             "dots", fp32 moments, B 8 × S 512 packed batches; one warm-up
-             and 5 timed steps) and falcon-mamba-7b at full width and 8 of
-             its 64 layers (B 8 × S 128, 3 timed steps; 64 layers' bf16
-             weights and grads and fp32 moments, ≈ 87 GB, do not fit the
-             card): step ms, tokens/s, peak memory, the bound, finite
-             losses, changed parameters, and flash_attention / mamba_scan
-             launched twice per layer a step (forward and remat's
-             recompute); one more step split into loss + backward and
-             AdamW, and one profiled. Last, resume on the card (2 layers,
-             full width, int8 moments: 6 steps straight against 3 +
-             restart + 3, losses within 2e-2) and a checkpoint snapshot
-             that survives an in-place change.
+             forward + backward beside theirs. Then llama3.2-3b,
+             falcon-mamba-7b and granite-moe-3b-a800m at full width and 2
+             layers, card against CPU: loss within 0.1, every gradient
+             leaf within 0.1 of its largest (granite's CPU run on the
+             card's expert choices, forward and remat's recompute, each
+             own choice that differs a near tie: ``Routing``). Then
+             llama3.2-3b at full width and depth (28 layers, remat "dots",
+             fp32 moments, B 8 × S 512 packed batches; one warm-up and 5
+             timed steps), falcon-mamba-7b at full width and 8 of its 64
+             layers (B 8 × S 128, 3 timed steps; 64 layers' bf16 weights
+             and grads and fp32 moments, ≈ 87 GB, do not fit the card) and
+             granite-moe-3b-a800m at full width and depth (32 layers, 40
+             experts top-8 through ``GroupedMmFn``, B 8 × S 512, 3 timed
+             steps): step ms, tokens/s, peak memory, the bound (an MoE
+             layer's experts counted at the k of E a token reaches),
+             finite losses, changed parameters, and flash_attention /
+             mamba_scan launched twice per layer a step (forward and
+             remat's recompute); one more step split into loss + backward
+             and AdamW, and one profiled. Then jamba's 8-layer period at
+             full width (d 4,096, 16 experts top-2, attention at layer 4),
+             B 2 × S 64, loss and gradients only (no room for AdamW's
+             state beside 27 GB of weights and as much of gradients):
+             every leaf's gradient finite and none missing, mamba_scan 14
+             and flash_attention 2 launches (remat), loss + backward ms
+             and peak memory; one jamba MoE layer's gradients at T 128
+             (x, router, each expert matrix) through ``GroupedMmFn``
+             against autograd of the dense exact path, each within 2^-6
+             of its largest |grad|; the backward's two products at
+             granite's training shape (the transposed weights as a view,
+             the weight gradient as one 2-D × 2-D product) against an
+             fp32 loop, experts without rows zero, timed beside a
+             contiguous copy and one ``mm`` per expert. Last, resume on
+             the card (2 layers, full width, int8 moments: 6 steps
+             straight against 3 + restart + 3, losses within 2e-2) and a
+             checkpoint snapshot that survives an in-place change; and
+             whether the card's ``torch._grouped_mm`` differentiates by
+             itself, with the error where it does not.
 
 11. dist   — distribution, four ranks on the one card over gloo
              (``launch.mesh.launch_ranks``; gloo stages every CUDA buffer
@@ -201,23 +222,32 @@ Phases (any failure exits non-zero and prints no result):
              B 8 × S 512 — the sharded loss and every gathered gradient
              leaf against the one-process card run (0.1, ``train``'s
              tolerances), each rank's blocks' bytes equal to the plan's
-             share, 3 timed train steps (step ms, peak GiB per rank,
+             share, 2 timed train steps (step ms, peak GiB per rank,
              flash_attention 8 launches a step a rank: 4 layers × 2 with
              remat, the host seconds in the staged transfers
              (``time_collectives``)) and the gathered parameters after
              them against the one-process steps (each leaf's update within
              DIST_UPDATE_REL, each step's grad norm within
              DIST_GNORM_REL); granite-moe-3b-a800m at full width and 4
-             of 32 layers, the forward loss through ``moe_ffn_ep`` at
-             capacity 8.0 (no pair dropped, the loss within 0.1 of the
-             one-process routed loss) and at the config's 1.5 (drops
-             counted), and one layer's EP FFN with its router biased to
-             data shard 0, card against the same run on 4 CPU gloo ranks:
-             equal drops and kept masks (``moe.kept_pairs`` on the ids
-             each ``_moe_local`` call took), outputs within DIST_FFN_REL
-             of max |y|. Then a GPipe of the 4-layer
-             llama on (pod 2, data 1, model 2), 4 microbatches, within
-             2e-3 of the sequential loss. Logs the calls gloo staged.
+             of 32 layers, B 8 × S 128 (cut for the time limit), through
+             ``moe_ffn_ep`` at capacity 8.0: 2 ``TrainStep`` steps (the EP backward through ``GroupedMmFn``
+             and the all-to-alls), no pair dropped in any EP call, each
+             step's loss within 0.1 and grad norm within DIST_GNORM_REL
+             of the one-process routed steps, each leaf's update within
+             DIST_UPDATE_REL, step ms, staged ms and calls; its forward
+             loss at the config's 1.5 (drops counted); and one layer's
+             EP FFN with its router biased to data shard 0, card against
+             the same run on 4 CPU gloo ranks: equal drops and kept masks
+             (``moe.kept_pairs`` on the ids each ``_moe_local`` call
+             took), outputs within DIST_FFN_REL of max |y|. Then a GPipe
+             of the 4-layer llama on (pod 2, data 1, model 2), 4
+             microbatches: the loss within 2e-3 of the sequential loss,
+             and ``loss.backward()`` on every rank (the reverse drain):
+             the gathered gradients within 0.1 (||dg|| / ||g|| per leaf)
+             of the sequential one-process gradients, forward and
+             backward ms with their staged ms and calls, flash_attention
+             8 launches a rank forward and 8 in remat's recompute. Logs
+             the calls gloo staged.
 12. dist_serve — sharded serving, four gloo ranks on the one card, (data
              2, model 2), seeded bf16 weights in the serving plan. First
              decode_attention on 4 sequence blocks of a cache (the
@@ -259,7 +289,9 @@ in the 4-shard card runs of phase 7, with ``per_shard`` replays (delta
 flushes for scatter_rows), and in the hybrid card runs of phase 8; for
 the model kernels ``serve``, the same two counts in each served model's
 run that launched it, ``encdec_vlm``, those of phase 9's runs, and
-``train``, those of phase 10's timed steps, for flash_attention
+``train``, those of phase 10's timed steps (llama3.2-3b, falcon-mamba-7b,
+granite-moe-3b-a800m) and of jamba's period's loss and backward, for
+flash_attention
 ``dist``, those of phase 11's ranks' timed steps, and ``dist_serve``,
 those of phase 12's meshed serving summed over its ranks), the
 card's name and power limit from nvidia-smi, and ``{"ok": true,
@@ -2628,7 +2660,7 @@ class Routing:
         def route(x, w, cfg):
             ids, weights, aux = self._orig(x, w, cfg)
             mine = self.calls[x.device.type]
-            mine.append((x.float().cpu(), ids.cpu(), w.float().cpu()))
+            mine.append((x.detach().float().cpu(), ids.cpu(), w.detach().float().cpu()))
             forced = self.force(x.device.type, len(mine) - 1) if self.force else None
             if forced is not None:
                 ids = forced.to(device=x.device, dtype=ids.dtype)
@@ -3126,7 +3158,10 @@ TRAIN_LOSS_TOL = 0.1           # card vs CPU loss (bf16 weights and activations)
 RESUME_TOL = 2e-2              # the reference's tests/test_checkpoint.py tolerance
 OPT_BYTES_PER_PARAM = 22       # AdamW, bf16 p and g, fp32 m and v: read 12, write 10
 # The full-width runs: (arch, layers (None: all), B, S, timed steps).
-TRAIN_RUNS = (("llama3.2-3b", None, 8, 512, 5), ("falcon-mamba-7b", 8, 8, 128, 3))
+TRAIN_RUNS = (("llama3.2-3b", None, 8, 512, 5), ("falcon-mamba-7b", 8, 8, 128, 3),
+              ("granite-moe-3b-a800m", None, 8, 512, 3))
+TRAIN_MODELS = ("llama3.2-3b", "falcon-mamba-7b", "granite-moe-3b-a800m")
+MOE_GRAD_T = 128               # one jamba MoE layer's gradients, routed vs dense exact
 
 
 def grad_errs(got, want) -> list:
@@ -3335,7 +3370,9 @@ def check_train_model(torch, arch: str) -> dict:
     on the card and a copy on the CPU (the plain versions), one packed
     batch (B 2, S 64): loss within TRAIN_LOSS_TOL, and every gradient
     leaf within TRAIN_CPU_REL of its largest |grad| (each leaf's error
-    printed), none missing."""
+    printed), none missing. An MoE model's CPU run takes the card's expert
+    choices (``Routing``: the forward's and remat's recompute's), and every
+    choice it would have made otherwise must be a near tie."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3346,9 +3383,14 @@ def check_train_model(torch, arch: str) -> dict:
     params = card.init_params(0)
     host = tree_map(lambda t: t.to("cpu"), params)
     t0 = time.perf_counter()
-    lc, gc_ = loss_and_grads(torch, card, params, train_batch(torch, cfg, 2, 64, "cuda"))
-    lh, gh = loss_and_grads(torch, Model(cfg, device="cpu"), host,
-                            train_batch(torch, cfg, 2, 64, "cpu"))
+    with Routing(torch, force=lambda dev, i: (routes.calls["cuda"][i][1]
+                                              if dev == "cpu" else None)) as routes:
+        lc, gc_ = loss_and_grads(torch, card, params, train_batch(torch, cfg, 2, 64, "cuda"))
+        lh, gh = loss_and_grads(torch, Model(cfg, device="cpu"), host,
+                                train_batch(torch, cfg, 2, 64, "cpu"))
+    flips, dx = (near_ties(torch, routes.calls["cuda"], routes.calls["cpu"],
+                           f"train model {arch} card vs CPU")
+                 if routes.calls["cuda"] else (0, 0.0))
     require(all(g is not None for g in gc_) and all(g is not None for g in gh),
             f"train model {arch}: a parameter got no gradient")
     errs = grad_errs([g.cpu() for g in gc_], gh)
@@ -3356,13 +3398,16 @@ def check_train_model(torch, arch: str) -> dict:
             f"train model {arch}: loss card {lc} vs CPU {lh}")
     require(max(errs) <= TRAIN_CPU_REL,
             f"train model {arch}: gradient errors {errs} past {TRAIN_CPU_REL}")
+    routing = (f"; the CPU on the card's expert choices ({len(routes.calls['cuda'])} routing "
+               f"calls, router inputs within {dx:.4f}; own choices that differ, each a near "
+               f"tie: {flips})" if routes.calls["cuda"] else "")
     log_card(f"train model {arch}: 2-layer full width, loss card {lc:.5f} vs CPU {lh:.5f} "
              f"(tolerance {TRAIN_LOSS_TOL}); grad rel err per leaf (bound {TRAIN_CPU_REL}) "
-             f"max {max(errs):.4f} {[round(e, 4) for e in errs]}; "
+             f"max {max(errs):.4f} {[round(e, 4) for e in errs]}{routing}; "
              f"{time.perf_counter() - t0:.1f} s")
     del card, params, gc_
     torch.cuda.empty_cache()
-    return dict(loss_card=lc, loss_cpu=lh, grad_rel_max=max(errs))
+    return dict(loss_card=lc, loss_cpu=lh, grad_rel_max=max(errs), flips=flips)
 
 
 def train_step_bound(params, cfg, B: int, S: int) -> dict:
@@ -3370,19 +3415,25 @@ def train_step_bound(params, cfg, B: int, S: int) -> dict:
     at its own roofline, summed. The bf16 layers: 6 · (N − embed − head)
     products a token at the bf16 tensor-core rate (every layer parameter
     counted as a matmul weight: norm scales, the scan's A and D and the
-    conv taps are under 0.1 % of them). The head, which the loss computes
-    in fp32: 6 · head a token at the fp32 rate. Causal attention's QK^T
-    and P·V: 12 · B · Hq · dh · S(S+1)/2 per attention layer (forward 4,
-    backward 8) at the bf16 rate. The scan: 3 · 7 · B · S · d_inner ·
-    d_state per Mamba layer (forward, backward twice) at the fp32 rate.
-    AdamW: OPT_BYTES_PER_PARAM a parameter at the HBM rate. The embedding
-    lookup does no products."""
+    conv taps are under 0.1 % of them), of an MoE layer's experts only the
+    k of E a token is routed to (granite's top-8 of 40: a fifth). The
+    head, which the loss computes in fp32: 6 · head a token at the fp32
+    rate. Causal attention's QK^T and P·V: 12 · B · Hq · dh · S(S+1)/2 per
+    attention layer (forward 4, backward 8) at the bf16 rate. The scan: 3
+    · 7 · B · S · d_inner · d_state per Mamba layer (forward, backward
+    twice) at the fp32 rate. AdamW: OPT_BYTES_PER_PARAM a parameter (every
+    expert's too) at the HBM rate. The embedding lookup does no
+    products."""
     n_params = tree_sum(params, lambda t: t.numel())
     n_embed, n_head = params["embed"].numel(), params["head"].numel()
+    experts = tree_sum([layer["mlp"][n] for layer in params["layers"]
+                        if "router" in layer.get("mlp", {}) for n in EXPERT_LEAVES],
+                       lambda t: t.numel())
+    active = n_params - n_embed - n_head - experts * (1 - cfg.moe_top_k / max(cfg.n_experts, 1))
     tokens = B * S
     kinds = cfg.layer_kinds()
     parts = {
-        "layers_ms": 6 * (n_params - n_embed - n_head) * tokens / BF16_OPS_PER_S,
+        "layers_ms": 6 * active * tokens / BF16_OPS_PER_S,
         "head_fp32_ms": 6 * n_head * tokens / FP32_OPS_PER_S,
         "attention_ms": (12 * kinds.count("attn") * B * cfg.n_heads * cfg.head_dim
                          * S * (S + 1) // 2 / BF16_OPS_PER_S),
@@ -3391,7 +3442,7 @@ def train_step_bound(params, cfg, B: int, S: int) -> dict:
         "adamw_ms": OPT_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S}
     parts = {k: v * 1e3 for k, v in parts.items()}
     return dict(bound_ms=sum(parts.values()), bound_parts=parts, params=n_params,
-                embed_params=n_embed, head_params=n_head)
+                embed_params=n_embed, head_params=n_head, expert_params=experts)
 
 
 def step_split(torch, step_fn, params, opt_state, batch) -> dict:
@@ -3509,6 +3560,162 @@ def run_train(torch, counters, arch: str, layers, B: int, S: int, timed: int) ->
     return res
 
 
+def check_hybrid_train(torch, counters) -> dict:
+    """jamba's period (HYBRID_LAYERS) at full width on the card from seeded
+    bf16 weights: the loss and every gradient, B 2 × S 64, through
+    ``GroupedMmFn``, ``FlashAttentionFn`` and ``MambaScanFn`` together (no
+    optimizer: ≈ 27 GB of bf16 weights and as much of gradients leave no
+    room for AdamW's fp32 state). The loss and every leaf finite, none
+    missing; flash_attention and mamba_scan launched once per layer of
+    their kind in the forward and once more in remat's recompute. Run
+    twice: the first checked, the second timed (CUDA events)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH), n_layers=HYBRID_LAYERS)
+    kinds = cfg.layer_kinds()
+    remat = 2 if cfg.remat in ("dots", "full") else 1
+    B, S = 2, 64
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    params = model.init_params(0)
+    n_params = tree_sum(params, lambda t: t.numel())
+    batch = train_batch(torch, cfg, B, S, "cuda")
+    for fn in counters.values():
+        fn.launches = 0
+    loss, grads = loss_and_grads(torch, model, params, batch)
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    missing = sum(g is None for g in grads)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads if g is not None)
+    require(missing == 0 and finite and math.isfinite(loss),
+            f"train {HYBRID_ARCH}: loss {loss}, {missing} leaves without a gradient, "
+            f"gradients finite: {finite}")
+    want = {"flash_attention": kinds.count("attn") * remat,
+            "mamba_scan": kinds.count("mamba") * remat}
+    require(counts == want, f"train {HYBRID_ARCH}: launches {counts}, not {want}")
+    del grads
+    ms, (_, grads) = event_ms(torch, lambda: loss_and_grads(torch, model, params, batch))
+    del grads
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log_card(f"train {HYBRID_ARCH}: full width, {HYBRID_LAYERS} layers {kinds} (MoE on "
+             f"{cfg.mlp_kinds().count('moe')}), {n_params / 1e9:.2f} B params, B {B} x S {S}, "
+             f"loss and grads only: loss {loss:.5f}, every leaf's gradient finite, none "
+             f"missing; launches {counts} ({remat} per layer with remat {cfg.remat}); loss + "
+             f"backward {ms:.3f} ms; peak {peak:.2f} GiB; {time.perf_counter() - t0:.1f} s")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(arch=HYBRID_ARCH, layers=HYBRID_LAYERS, params=n_params, B=B, S=S,
+                loss=loss, fwd_bwd_ms=ms, peak_gib=peak, launches=counts,
+                launches_per_step=counts)
+
+
+def grouped_backward_paths(torch) -> dict:
+    """The two products of ``GroupedMmFn``'s backward at granite's training
+    shape (B 8 × S 512 tokens, top-8 of 40 experts: 32,768 rows, d 1,536,
+    d_ff_expert 512; two experts with no rows), seeded bf16, each against
+    the alternative it was chosen over, timed by CUDA events: dRows with
+    the experts' transposed weights as a strided view (the port) against
+    a contiguous copy of them; dW as one 2-D × 2-D ``_grouped_mm`` (the
+    port) against one bf16 ``mm`` per expert. Both held against an fp32
+    loop within MOE_REL of the largest |value|; the 2-D × 2-D product
+    computed into memory filled with NaN first, and the experts with no
+    rows held at zero."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("granite-moe-3b-a800m")
+    E, d, f, N = cfg.n_experts, cfg.d_model, cfg.d_ff_expert, 8 * 512 * cfg.moe_top_k
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(43)
+    sizes = torch.rand(E, generator=gen, device="cuda") + 0.5
+    sizes[[3, 17]] = 0.0
+    sizes = (sizes / sizes.sum() * N).long()
+    sizes[-1] += N - sizes.sum()
+    offs = sizes.cumsum(0).to(torch.int32)
+    rows = torch.randn((N, d), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((E, d, f), generator=gen, device="cuda") * d ** -0.5).to(torch.bfloat16)
+    d_out = torch.randn((N, f), generator=gen, device="cuda").to(torch.bfloat16)
+    ends = offs.tolist()
+    starts = [0] + ends[:-1]
+    want_rows = torch.empty((N, d), device="cuda")
+    want_w = torch.zeros((E, d, f), device="cuda")
+    for e, (a, b) in enumerate(zip(starts, ends)):
+        want_rows[a:b] = d_out[a:b].float() @ w[e].float().t()
+        want_w[e] = rows[a:b].float().t() @ d_out[a:b].float()
+
+    def per_expert():
+        out = torch.empty((E, d, f), dtype=torch.bfloat16, device="cuda")
+        for e, (a, b) in enumerate(zip(starts, ends)):
+            torch.mm(rows[a:b].t(), d_out[a:b], out=out[e])
+        return out
+    paths = {"d_rows_view": (lambda: moe._op_mm(d_out, w.transpose(-1, -2), offs), want_rows),
+             "d_rows_copy": (lambda: moe._op_mm(d_out, w.transpose(-1, -2).contiguous(), offs),
+                             want_rows),
+             "d_w_grouped_2d": (lambda: moe._op_mm(rows.t(), d_out, offs), want_w),
+             "d_w_per_expert": (per_expert, want_w)}
+    out = {}
+    for name, (fn, want) in paths.items():
+        torch.full((E * d * f * 2,), float("nan"), dtype=torch.bfloat16, device="cuda")
+        got = fn()                       # into memory that held NaN
+        err = float((got.float() - want).abs().max())
+        tol = MOE_REL * float(want.abs().max())
+        require(err <= tol, f"moe grads {name}: max |err| {err} past {tol}")
+        if name.startswith("d_w"):
+            require(not got[3].any() and not got[17].any(),
+                    f"moe grads {name}: an expert with no rows got a nonzero gradient")
+        out[name] = dict(max_abs_err=err, ms=graph_ms(torch, [fn]))
+    log_card(f"train: GroupedMmFn's backward products at granite's training shape (N {N}, "
+             f"d {d}, ffe {f}, {E} experts, 2 without rows), each vs an fp32 loop (bound "
+             f"{MOE_REL} of the largest |value|), the experts without rows zero: "
+             f"{ {k: {m: round(v, 6) for m, v in r.items()} for k, r in out.items()} }")
+    del rows, w, d_out, want_rows, want_w
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_moe_grads(torch) -> dict:
+    """One MoE layer at jamba's full width (d 4,096, 16 experts top-2,
+    d_ff_expert 14,336), seeded bf16 weights and MOE_GRAD_T rows on the
+    card: the gradients of sum(y · dy) for x, the router and each expert
+    matrix through ``moe_ffn_routed`` (``GroupedMmFn``) against autograd of
+    ``moe_ffn_dense_exact`` (every expert in fp32), each within MOE_REL of
+    its largest |grad| (the forward's bound); each timed (CUDA events)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.layers import init_moe
+    cfg = get_config(HYBRID_ARCH)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(37)
+    p = init_moe(gen, cfg, "cuda")
+    x = torch.randn((MOE_GRAD_T, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    dy = torch.randn((MOE_GRAD_T, cfg.d_model), generator=gen, device="cuda")
+    names = ["x", *p]
+
+    def grads(ffn):
+        leaves = [x.clone().requires_grad_(), *(t.detach().requires_grad_() for t in p.values())]
+        y, _ = ffn(leaves[0], dict(zip(p, leaves[1:])), cfg)
+        return torch.autograd.grad((y.float() * dy).sum(), leaves)
+    routed_ms, got = event_ms(torch, lambda: grads(moe.moe_ffn_routed))
+    dense_ms, want = event_ms(torch, lambda: grads(moe.moe_ffn_dense_exact))
+    errs = dict(zip(names, grad_errs(got, want)))
+    dtypes = all(g.dtype == w.dtype for g, w in zip(got, want))
+    require(dtypes and max(errs.values()) <= MOE_REL,
+            f"moe grads {HYBRID_ARCH}: routed vs dense exact {errs} past {MOE_REL} "
+            f"(dtypes equal: {dtypes})")
+    log_card(f"train: moe_ffn grads {HYBRID_ARCH} T {MOE_GRAD_T} (d {cfg.d_model}, "
+             f"{cfg.n_experts} experts top-{cfg.moe_top_k}, ffe {cfg.d_ff_expert}): routed "
+             f"through GroupedMmFn vs autograd of the dense exact path, rel err per leaf "
+             f"{ {k: round(v, 5) for k, v in errs.items()} } (bound {MOE_REL}); loss + "
+             f"backward {routed_ms:.3f} ms, dense exact {dense_ms:.3f} ms (first calls)")
+    del p, x, dy, got, want
+    torch.cuda.empty_cache()
+    return dict(grad_rel_err=errs, ms=routed_ms, dense_ms=dense_ms)
+
+
 def check_train_resume(torch) -> dict:
     """llama3.2-3b at full width and 2 layers on the card, int8 moments
     (kimi-k2's setting: a 4 GB checkpoint where fp32 moments make 10 GB,
@@ -3566,16 +3773,23 @@ def check_train_resume(torch) -> dict:
 
 def run_train_phase(torch, dev, counters) -> dict:
     """Phase 10: the kernels' Functions, the 2-layer card-vs-CPU checks,
-    the full-width runs and the resume check. Also logs whether the card's
-    ``torch._grouped_mm`` has a backward (MoE training's gate)."""
+    the full-width runs, jamba's period's gradients, one MoE layer's
+    gradients against the dense path and the resume check. Also logs
+    whether the card's ``torch._grouped_mm`` differentiates by itself, and
+    why not (the port's ``GroupedMmFn`` does not use that backward)."""
     from repro_torch.models.moe import grouped_mm_has_backward
     out = {"kernels": check_train_kernels(torch, dev)}
-    for arch in ("llama3.2-3b", "falcon-mamba-7b"):
+    for arch in TRAIN_MODELS:
         out[f"model {arch}"] = check_train_model(torch, arch)
     out["runs"] = [run_train(torch, counters, *run) for run in TRAIN_RUNS]
+    out["runs"].append(check_hybrid_train(torch, counters))
+    out["moe_grads"] = check_moe_grads(torch)
+    out["moe_backward_paths"] = grouped_backward_paths(torch)
     out["resume"] = check_train_resume(torch)
-    log(f"train: torch._grouped_mm has a backward on this card's torch "
-        f"{torch.__version__}: {grouped_mm_has_backward('cuda')}")
+    has, why = grouped_mm_has_backward("cuda")
+    log(f"train: torch._grouped_mm differentiates by itself on this card's torch "
+        f"{torch.__version__} (two groups of 8 rows, 16 x 16, the gradient of a sum): "
+        f"{has}{f' ({why})' if why else ''}")
     return out
 
 
@@ -3586,8 +3800,11 @@ def run_train_phase(torch, dev, counters) -> dict:
 # host memory, so the times say nothing of a four-card deployment.
 DIST_WORLD = 4
 DIST_DEVICE = "cuda"
-DIST_LLAMA = ("llama3.2-3b", 4, 8, 512, 3)      # arch, layers, B, S, timed steps
-DIST_GRANITE = ("granite-moe-3b-a800m", 4, 8, 512)
+DIST_LLAMA = ("llama3.2-3b", 4, 8, 512, 2)      # arch, layers, B, S, timed steps
+# arch, layers, B, S, steps. At capacity 8.0 each EP all-to-all carries
+# eight times the tokens' pairs, staged through host: at S 512 a step took
+# 31-34 s a rank (H100 80GB HBM3, 700.00 W), so S is cut to 128.
+DIST_GRANITE = ("granite-moe-3b-a800m", 4, 8, 128, 2)
 DIST_FFN_TOKENS = 4096                           # granite's EP FFN, card against CPU
 DIST_PP_MICRO = 4
 DIST_FLASH = (("dist_llama_local", 4, HQ // 2, HKV // 2, 512, DH, True),)
@@ -3738,13 +3955,8 @@ def dist_llama(torch, rank, dist, counters, spent) -> dict:
         ref_opt = init_opt_state(ref_params, opt_cfg)
         ref = [tuple(float(v) for v in (m["loss"], m["grad_norm"]))
                for m in (one_step(ref_params, ref_opt, b) for b in batches)]
-        rel = []
-        for p0, got, want in zip(init, tree_leaves(after), tree_leaves(ref_params)):
-            d_want = want.detach().float() - p0.float()
-            d_got = got.float() - p0.float()
-            rel.append(float((d_got - d_want).norm() / d_want.norm().clamp(min=1e-30)))
         out.update(ref_losses=[r[0] for r in ref], ref_grad_norms=[r[1] for r in ref],
-                   update_rel=rel)
+                   update_rel=update_errs(init, tree_leaves(after), tree_leaves(ref_params)))
         del init, ref_params, ref_opt, one_step
     del after
     torch.cuda.empty_cache()
@@ -3753,48 +3965,106 @@ def dist_llama(torch, rank, dist, counters, spent) -> dict:
 
 def dist_granite(torch, rank, dist, spent) -> dict:
     """granite-moe-3b-a800m at full width and DIST_GRANITE's layers on
-    (data 2, model 2), the forward loss through ``moe_ffn_ep`` (default
-    layout, ``rs_combine``): at capacity 8.0 no pair drops and the loss
-    is held against the one-process routed loss (rank 0); at the
-    config's 1.5 the drops are counted."""
+    (data 2, model 2) through ``moe_ffn_ep`` (default layout,
+    ``rs_combine``): at capacity 8.0 ``timed`` train steps (``TrainStep``:
+    the EP backward through ``GroupedMmFn`` and the all-to-alls), no pair
+    dropped in any EP call (forward or remat's recompute), and the
+    gathered parameters after them against the one-process steps (rank 0,
+    the routed path: nothing to drop); at the config's 1.5 the forward
+    loss, its drops counted."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.distributed import collectives as coll
-    from repro_torch.launch.sharding import shard_batch, shard_tree
+    from repro_torch.launch.sharding import gather_tree, shard_batch, shard_tree
+    from repro_torch.launch.steps import make_train_step
     from repro_torch.models import moe
+    from repro_torch.models.convert import tree_leaves
     from repro_torch.models.model import Model
-    arch, layers, B, S = DIST_GRANITE
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    arch, layers, B, S, timed = DIST_GRANITE
     base = dataclasses.replace(get_config(arch), n_layers=layers)
+    remat = 2 if base.remat in ("dots", "full") else 1
     torch.cuda.reset_peak_memory_stats()
     full = Model(base, device=DIST_DEVICE).init_params(0)
-    batch = dist_batches(torch, base, B, S, 1)[0]
-    out = {}
-    for cf in (8.0, base.capacity_factor):
-        cfg = dataclasses.replace(base, capacity_factor=cf)
-        model = Model(cfg, device=DIST_DEVICE, dist=dist)
-        params = shard_tree(full, model.plan, dist)
-        torch.cuda.synchronize()
-        c0, t0 = spent["s"], time.perf_counter()
-        with torch.no_grad(), mock.patch.object(moe, "_moe_local", wraps=moe._moe_local) as spy:
-            loss = float(model.loss_fn(params, shard_batch(batch, cfg, dist))[0])
-        ms = (time.perf_counter() - t0) * 1e3
-        coll_ms = (spent["s"] - c0) * 1e3
-        require(len(spy.call_args_list) == layers,
-                f"dist {arch}: {len(spy.call_args_list)} EP calls in {layers} layers")
-        counts = torch.tensor(ep_drops(torch, moe, spy.call_args_list), dtype=torch.float32,
-                              device=DIST_DEVICE)
-        pairs, dropped = (int(v) for v in coll.all_reduce(counts, dist, dist.batch_axes))
-        row = dict(loss=loss, pairs=pairs, dropped=dropped, forward_ms=ms, coll_ms=coll_ms)
-        if rank == 0 and cf == 8.0:
-            with torch.no_grad():
-                row["ref_loss"] = float(Model(cfg, device=DIST_DEVICE).loss_fn(full, batch)[0])
-        out[cf] = row
-        del params
-    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    batches = dist_batches(torch, base, B, S, timed)
+    opt_cfg = AdamWConfig(lr=3e-4, state_dtype=base.opt_state_dtype, warmup_steps=1,
+                          total_steps=timed)
+    cfg = dataclasses.replace(base, capacity_factor=8.0)
+    model = Model(cfg, device=DIST_DEVICE, dist=dist)
+    params = shard_tree(full, model.plan, dist)
     del full
+    opt = init_opt_state(params, opt_cfg, dist=dist, specs=model.plan)
+    step = make_train_step(model, opt_cfg)
+    coll.all_reduce(torch.zeros(1, device=DIST_DEVICE), dist, ("data", "model"))   # a barrier
+    steps, staged = [], []
+    with mock.patch.object(moe, "_moe_local", wraps=moe._moe_local) as spy:
+        for batch in batches:
+            torch.cuda.synchronize()
+            c0, t0, n0 = spent["s"], time.perf_counter(), sum(coll.STAGED.values())
+            m = step(params, opt, batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            steps.append(((time.perf_counter() - t0) * 1e3, loss, gnorm,
+                          (spent["s"] - c0) * 1e3))
+            staged.append(sum(coll.STAGED.values()) - n0)
+    require(len(spy.call_args_list) == layers * remat * timed,
+            f"dist {arch}: {len(spy.call_args_list)} EP calls in {timed} steps of {layers} "
+            f"layers, not {layers} x {remat} (remat {cfg.remat}) x {timed}")
+    counts = torch.tensor(ep_drops(torch, moe, spy.call_args_list), dtype=torch.float32,
+                          device=DIST_DEVICE)
+    pairs, dropped = (int(v) for v in coll.all_reduce(counts, dist, dist.batch_axes))
+    out = {8.0: dict(step_ms=[s[0] for s in steps], losses=[s[1] for s in steps],
+                     grad_norms=[s[2] for s in steps], coll_ms=[s[3] for s in steps],
+                     staged_per_step=staged, pairs=pairs, dropped=dropped)}
+    after = gather_tree(params, model.plan, dist)
+    del params, opt, step
+    torch.cuda.empty_cache()
+    if rank == 0:          # the same steps in one process, from the same init
+        one = Model(cfg, device=DIST_DEVICE)
+        ref_params = one.init_params(0)
+        init = [t.detach().clone() for t in tree_leaves(ref_params)]
+        one_step = make_train_step(one, opt_cfg)
+        ref_opt = init_opt_state(ref_params, opt_cfg)
+        ref = [tuple(float(v) for v in (m["loss"], m["grad_norm"]))
+               for m in (one_step(ref_params, ref_opt, b) for b in batches)]
+        out[8.0].update(ref_losses=[r[0] for r in ref], ref_grad_norms=[r[1] for r in ref],
+                        update_rel=update_errs(init, tree_leaves(after),
+                                               tree_leaves(ref_params)))
+        del one_step, ref_opt, ref_params, init
+    del after
+    full = Model(base, device=DIST_DEVICE).init_params(0)
+    model = Model(base, device=DIST_DEVICE, dist=dist)
+    params = shard_tree(full, model.plan, dist)
+    del full
+    torch.cuda.synchronize()
+    c0, t0 = spent["s"], time.perf_counter()
+    with torch.no_grad(), mock.patch.object(moe, "_moe_local", wraps=moe._moe_local) as spy:
+        loss = float(model.loss_fn(params, shard_batch(batches[0], base, dist))[0])
+    ms = (time.perf_counter() - t0) * 1e3
+    require(len(spy.call_args_list) == layers,
+            f"dist {arch}: {len(spy.call_args_list)} EP calls in {layers} layers")
+    counts = torch.tensor(ep_drops(torch, moe, spy.call_args_list), dtype=torch.float32,
+                          device=DIST_DEVICE)
+    pairs, dropped = (int(v) for v in coll.all_reduce(counts, dist, dist.batch_axes))
+    out[base.capacity_factor] = dict(loss=loss, pairs=pairs, dropped=dropped, forward_ms=ms,
+                                     coll_ms=(spent["s"] - c0) * 1e3)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params
     torch.cuda.empty_cache()
     return out
+
+
+def l2_errs(got, want) -> list:
+    """Each pair's ||got - want|| / ||want|| (fp32)."""
+    return [float((g.detach().float() - w.detach().float()).norm()
+                  / w.detach().float().norm().clamp(min=1e-30)) for g, w in zip(got, want)]
+
+
+def update_errs(init, got, want) -> list:
+    """Each leaf's update ||(got - init) - (want - init)|| / ||want - init||."""
+    return [l2_errs([g.detach().float() - p0.float()], [w.detach().float() - p0.float()])[0]
+            for p0, g, w in zip(init, got, want)]
 
 
 def dist_ffn_inputs(torch, device: str):
@@ -3837,13 +4107,18 @@ def dist_ffn(torch, dist, device: str) -> dict:
 
 def dist_gpipe(torch, rank, dist, counters, spent) -> dict:
     """llama3.2-3b at full width and DIST_LLAMA's layers as a GPipe over
-    pod 2 (data 1, model 2), DIST_PP_MICRO microbatches, against the
-    sequential one-process loss (rank 0)."""
+    pod 2 (data 1, model 2), DIST_PP_MICRO microbatches: the loss, then
+    ``loss.backward()`` on every rank (the reverse drain), the gradients
+    gathered, against the sequential one-process loss and gradients (rank
+    0). The forward and the backward timed apart (host clock, synced),
+    each with the ms in the staged transfers and the calls staged."""
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as coll
     from repro_torch.launch.pipeline import make_pp_loss, pp_stack_specs, reshape_stack_for_pp
-    from repro_torch.launch.sharding import shard_tree
+    from repro_torch.launch.sharding import gather_tree, shard_tree
+    from repro_torch.models.convert import tree_leaves, tree_map, tree_unflatten
     from repro_torch.models.model import Model
     arch, layers, B, S, _ = DIST_LLAMA
     cfg = dataclasses.replace(get_config(arch), n_layers=layers)
@@ -3852,21 +4127,36 @@ def dist_gpipe(torch, rank, dist, counters, spent) -> dict:
     batch = dist_batches(torch, cfg, B, S, 1)[0]
     out = {}
     if rank == 0:
-        with torch.no_grad():
-            out["seq_loss"] = float(Model(cfg, device=DIST_DEVICE).loss_fn(full, batch)[0])
+        out["seq_loss"], seq = loss_and_grads(torch, Model(cfg, device=DIST_DEVICE), full, batch)
     pp = dict(full, layers=reshape_stack_for_pp(full["layers"], dist.n_pod))
     specs = dict(model.plan, layers=pp_stack_specs(model.plan["layers"], dist.n_pod))
-    local = shard_tree(pp, specs, dist)
+    local = tree_map(lambda t: t.detach().requires_grad_(), shard_tree(pp, specs, dist))
+    leaves = tree_leaves(local)
     del full, pp
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     counters["flash_attention"].launches = 0
-    c0, t0 = spent["s"], time.perf_counter()
-    out["pp_loss"] = float(make_pp_loss(model, DIST_PP_MICRO)(local, batch)[0])
-    out["pp_ms"] = (time.perf_counter() - t0) * 1e3
-    out["coll_ms"] = (spent["s"] - c0) * 1e3
+    c0, n0, t0 = spent["s"], sum(coll.STAGED.values()), time.perf_counter()
+    loss, _ = make_pp_loss(model, DIST_PP_MICRO)(local, batch)
+    torch.cuda.synchronize()
+    c1, n1, t1 = spent["s"], sum(coll.STAGED.values()), time.perf_counter()
     out["flash"] = counters["flash_attention"].launches
-    del local
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out.update(pp_loss=float(loss.detach()), pp_ms=(t1 - t0) * 1e3, coll_ms=(c1 - c0) * 1e3,
+               staged=n1 - n0, bwd_ms=(t2 - t1) * 1e3, bwd_coll_ms=(spent["s"] - c1) * 1e3,
+               bwd_staged=sum(coll.STAGED.values()) - n1,
+               bwd_flash=counters["flash_attention"].launches - out["flash"])
+    grads = gather_tree(tree_unflatten(local, [p.grad for p in leaves]), specs, dist)
+    # back to the sequential stack: stage s's j-th layer is layer s·L/P + j
+    grads["layers"] = [tree_map(lambda t: t[st], layer) for st in range(dist.n_pod)
+                       for layer in grads["layers"]]
+    if rank == 0:
+        got = tree_leaves(grads)
+        out.update(grad_errs=grad_errs(got, seq), grad_l2=l2_errs(got, seq))
+        del seq
+    del local, leaves, grads, loss
     torch.cuda.empty_cache()
     return out
 
@@ -3975,15 +4265,25 @@ def run_dist_phase(torch, dev, counters) -> dict:
              f"bytes a rank = the plan's share {ll['share']['plan_share_bytes']:,} of "
              f"{ll['share']['full_bytes']:,}; first loss + gathered grads "
              f"{ll['grads_s']:.1f} s")
-    # granite: EP loss, drops
+    # granite: EP train steps, drops
     gr = r0["granite"]
-    g_arch, g_layers, gB, gS = DIST_GRANITE
-    no_drop, cfg_cf = gr[8.0], [k for k in gr if k not in (8.0, "peak_gib")][0]
-    require(no_drop["dropped"] == 0, f"dist {g_arch}: capacity 8.0 dropped {no_drop}")
-    require(abs(no_drop["loss"] - no_drop["ref_loss"]) <= TRAIN_LOSS_TOL,
-            f"dist {g_arch}: EP loss {no_drop['loss']} vs one-process routed "
-            f"{no_drop['ref_loss']}")
-    require(all(r["granite"][k]["loss"] == gr[k]["loss"] for r in ranks for k in (8.0, cfg_cf)),
+    g_arch, g_layers, gB, gS, g_timed = DIST_GRANITE
+    tr, cfg_cf = gr[8.0], [k for k in gr if k not in (8.0, "peak_gib")][0]
+    require(tr["dropped"] == 0, f"dist {g_arch}: capacity 8.0 dropped {tr['dropped']} of "
+            f"{tr['pairs']} pairs")
+    require(all(math.isfinite(x) for x in tr["losses"] + tr["grad_norms"]),
+            f"dist {g_arch}: non-finite losses {tr['losses']} or grad norms {tr['grad_norms']}")
+    require(max(abs(a - b) for a, b in zip(tr["losses"], tr["ref_losses"])) <= TRAIN_LOSS_TOL,
+            f"dist {g_arch}: step losses {tr['losses']} vs one process {tr['ref_losses']}")
+    g_gnorm_rel = [abs(a - b) / b for a, b in zip(tr["grad_norms"], tr["ref_grad_norms"])]
+    require(max(g_gnorm_rel) <= DIST_GNORM_REL,
+            f"dist {g_arch}: grad norms {tr['grad_norms']} vs one process "
+            f"{tr['ref_grad_norms']} (relative {g_gnorm_rel}, bound {DIST_GNORM_REL})")
+    require(max(tr["update_rel"]) <= DIST_UPDATE_REL,
+            f"dist {g_arch}: parameter updates after {g_timed} steps differ from the one "
+            f"process's by {tr['update_rel']} (bound {DIST_UPDATE_REL})")
+    require(all(r["granite"][8.0]["losses"] == tr["losses"]
+                and r["granite"][cfg_cf]["loss"] == gr[cfg_cf]["loss"] for r in ranks),
             f"dist {g_arch}: the ranks' losses differ")
     ffn = {r["ffn"]["batch_shard"]: r["ffn"] for r in ranks}
     ffn_cpu = {r["batch_shard"]: r for r in cpu}
@@ -3999,14 +4299,22 @@ def run_dist_phase(torch, dev, counters) -> dict:
             f"dist {g_arch} EP FFN: max |y card - y CPU| {y_err} past {DIST_FFN_REL} of "
             f"max |y| {y_max}")
     log_card(f"dist {g_arch}: {g_layers} layers at full width, bf16, (data 2, model 2), "
-             f"B {gB} x S {gS}, forward through moe_ffn_ep (default layout, rs_combine): "
-             f"capacity 8.0 loss {no_drop['loss']:.5f} vs one-process routed "
-             f"{no_drop['ref_loss']:.5f} (tolerance {TRAIN_LOSS_TOL}), dropped "
-             f"{no_drop['dropped']} of {no_drop['pairs']} pairs, forward "
-             f"{no_drop['forward_ms']:.1f} ms (rank 0; in the staged collectives "
-             f"{no_drop['coll_ms']:.1f}); capacity {cfg_cf} loss "
+             f"B {gB} x S {gS}, through moe_ffn_ep (default layout, rs_combine): capacity "
+             f"8.0, {g_timed} train steps (TrainStep; the EP backward through GroupedMmFn): "
+             f"losses {[round(x, 4) for x in tr['losses']]} vs one process (routed) "
+             f"{[round(x, 4) for x in tr['ref_losses']]}, grad norms "
+             f"{[round(x, 4) for x in tr['grad_norms']]} vs "
+             f"{[round(x, 4) for x in tr['ref_grad_norms']]} (relative max "
+             f"{max(g_gnorm_rel):.5f}, bound {DIST_GNORM_REL}); gathered parameters' update "
+             f"rel err per leaf max {max(tr['update_rel']):.4f} (bound {DIST_UPDATE_REL}); "
+             f"dropped {tr['dropped']} of {tr['pairs']} pairs in the steps' EP calls; step ms "
+             f"per rank {[[round(x, 1) for x in r['granite'][8.0]['step_ms']] for r in ranks]}"
+             f", of which in the staged collectives "
+             f"{[[round(x, 1) for x in r['granite'][8.0]['coll_ms']] for r in ranks]}, staged "
+             f"calls a step (rank 0) {tr['staged_per_step']}; capacity {cfg_cf} forward loss "
              f"{gr[cfg_cf]['loss']:.5f}, dropped {gr[cfg_cf]['dropped']} of "
-             f"{gr[cfg_cf]['pairs']} pairs; peak GiB per rank "
+             f"{gr[cfg_cf]['pairs']} pairs, forward {gr[cfg_cf]['forward_ms']:.1f} ms (rank 0; "
+             f"in the staged collectives {gr[cfg_cf]['coll_ms']:.1f}); peak GiB per rank "
              f"{[round(r['granite']['peak_gib'], 2) for r in ranks]}")
     log_card(f"dist {g_arch} EP FFN, one layer's experts at full width, {DIST_FFN_TOKENS} "
              f"seeded bf16 rows, capacity {cfg_cf}: card dropped {card_drop} pairs, the same "
@@ -4017,19 +4325,33 @@ def run_dist_phase(torch, dev, counters) -> dict:
     gp = r0["gpipe"]
     require(all(r["gpipe"]["pp_loss"] == gp["pp_loss"] for r in ranks),
             f"dist gpipe: the ranks' losses differ")
-    require(all(r["gpipe"]["flash"] == layers // 2 * DIST_PP_MICRO for r in ranks),
-            f"dist gpipe: flash_attention launches per rank {[r['gpipe']['flash'] for r in ranks]}")
+    require(all(r["gpipe"]["flash"] == r["gpipe"]["bwd_flash"] == layers // 2 * DIST_PP_MICRO
+                for r in ranks),
+            f"dist gpipe: flash_attention launches per rank in the forward "
+            f"{[r['gpipe']['flash'] for r in ranks]}, in the backward (remat's recompute) "
+            f"{[r['gpipe']['bwd_flash'] for r in ranks]}")
     require(abs(gp["pp_loss"] - gp["seq_loss"]) <= DIST_PP_TOL,
             f"dist gpipe {arch}: pipeline loss {gp['pp_loss']} vs sequential "
             f"{gp['seq_loss']} (bound {DIST_PP_TOL})")
+    require(max(gp["grad_l2"]) <= TRAIN_CPU_REL,
+            f"dist gpipe {arch}: gathered gradients vs sequential, ||dg|| / ||g|| per leaf "
+            f"{gp['grad_l2']} past {TRAIN_CPU_REL}")
     log_card(f"dist gpipe {arch}: {layers} layers at full width over (pod 2, data 1, model "
              f"2), {DIST_PP_MICRO} microbatches of B {B // DIST_PP_MICRO} x S {S}: loss "
              f"{gp['pp_loss']:.6f} vs sequential one process {gp['seq_loss']:.6f} (|diff| "
-             f"{abs(gp['pp_loss'] - gp['seq_loss']):.2e}, bound {DIST_PP_TOL}); forward "
-             f"ms per rank {[round(r['gpipe']['pp_ms'], 1) for r in ranks]}, of which in the "
-             f"staged transfers {[round(r['gpipe']['coll_ms'], 1) for r in ranks]}; "
-             f"flash_attention "
-             f"launches per rank {[r['gpipe']['flash'] for r in ranks]} (each stage's "
+             f"{abs(gp['pp_loss'] - gp['seq_loss']):.2e}, bound {DIST_PP_TOL}); gradients by "
+             f"loss.backward() on every rank (the reverse drain), gathered, vs the sequential "
+             f"one process's: ||dg|| / ||g|| per leaf max {max(gp['grad_l2']):.5f} (bound "
+             f"{TRAIN_CPU_REL}, DIST_UPDATE_REL's measure), max |dg| / max |g| max "
+             f"{max(gp['grad_errs']):.5f}; forward ms per rank "
+             f"{[round(r['gpipe']['pp_ms'], 1) for r in ranks]}, of which in the staged "
+             f"transfers {[round(r['gpipe']['coll_ms'], 1) for r in ranks]} "
+             f"({gp['staged']} calls staged, rank 0); backward ms per rank "
+             f"{[round(r['gpipe']['bwd_ms'], 1) for r in ranks]}, of which in the staged "
+             f"transfers {[round(r['gpipe']['bwd_coll_ms'], 1) for r in ranks]} "
+             f"({gp['bwd_staged']} calls staged, rank 0); flash_attention launches per rank "
+             f"{[r['gpipe']['flash'] for r in ranks]} forward + "
+             f"{[r['gpipe']['bwd_flash'] for r in ranks]} in remat's recompute (each stage's "
              f"{layers // 2} layers x {DIST_PP_MICRO} microbatches)")
     log(f"dist: gloo staged through host memory (calls per rank 0, by operation): "
         f"{r0['staged']}; the card ranks {t1 - t0:.1f} s (rank 0's work "
@@ -4835,7 +5157,7 @@ def main(argv: list[str]) -> int:
             log(f"phase parity: {time.perf_counter() - t0:.1f} s")
         if "shard" in phases:
             t0 = time.perf_counter()
-            sharded = run_shard_path(torch, counters, steps=200, long_steps=400)
+            sharded = run_shard_path(torch, counters, steps=100, long_steps=400)
             log_card(f"phase shard: {time.perf_counter() - t0:.1f} s; launches of the 4-shard "
                 f"card runs {sharded}")
         if "sim" in phases:

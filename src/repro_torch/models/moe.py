@@ -37,14 +37,11 @@ them in fp32 and rounds only the hidden; the down product is rounded to
 the activation dtype in both, as ``_moe_local`` does before its combine.
 A CPU tensor takes a plain loop over the experts with host-known offsets,
 in fp32, which is the reference's arithmetic. Any other case on the card
-(fp32 operands, a missing op, a layout it refuses) raises, naming the
-cause; it never falls back to the loop or the dense path. The expert
-matrices are used in their stored (E, d, ffe) / (E, ffe, d) row-major
-order, which ``_grouped_mm`` takes as they are (16-byte-aligned strides),
-so no copy of the weights is made.
-
-The reference's ``_ragged_dot`` custom VJP works around a jax 0.4.x
-cotangent dtype bug in training; it has no counterpart here.
+(fp32 operands, a layout it refuses) raises, naming the cause; it never
+falls back to the loop or the dense path. The expert matrices are used in
+their stored (E, d, ffe) / (E, ffe, d) row-major order, which
+``_grouped_mm`` takes as they are (16-byte-aligned strides), so no copy of
+the weights is made.
 
 Expert parallelism (``moe_ffn_ep``, under a mesh): the reference's
 ``_moe_local`` per rank, with the collectives written out. Experts are
@@ -85,11 +82,17 @@ path (``_moe_dense_dist``).
 
 Training: on the CPU the whole FFN, the Switch aux loss included, is
 differentiable (the loop's products, the sort's values, the index ops).
-On the card the backward needs one of ``torch._grouped_mm``, which a
-given torch build may lack: with grad enabled and an operand that
-requires grad, ``grouped_mm`` first asks the card's build
-(``grouped_mm_has_backward``) and raises ``NotImplementedError`` naming
-it where there is none, rather than switch to the loop.
+On the card the product runs inside ``GroupedMmFn``, with grad or
+without: the counterpart of the reference's ``_ragged_dot`` custom VJP.
+Its forward is the op itself, so serving computes what it did; its
+backward is two more grouped products of the same op: the rows'
+gradient against each expert's transposed weight (a strided view, no
+copy), and the weights' gradient rowsᵀ·dOut as one 2-D × 2-D product
+with the offsets over the rows (an expert with no rows gets zeros); each
+accumulates in fp32 and is cast to its operand's dtype, as
+``_ragged_dot_bwd`` casts. ``grouped_mm_has_backward`` asks whether the
+build differentiates the op by itself, and why not: a logged fact, not a
+gate.
 """
 
 from __future__ import annotations
@@ -161,57 +164,98 @@ def _dense_combine(x, ids, weights, p: dict, cfg) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def _loop_mm(a: torch.Tensor, b: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """``torch._grouped_mm``'s function as a plain loop over the groups, in
+    fp32 (offs (G,) int32 cumulative ends): a (N, K) and b (G, K, M) give
+    (N, M), rows offs[g-1]:offs[g] of a times b[g]; a (K, N) and b (N, M)
+    give (G, K, M), each group's columns of a times its rows of b, zeros
+    for an empty group. Autograd differentiates it."""
+    start = 0
+    if b.dim() == 3:
+        out = a.new_zeros((a.shape[0], b.shape[-1]), dtype=torch.float32)
+        for e, end in enumerate(offs.tolist()):
+            if end > start:
+                out[start:end] = a[start:end].to(torch.float32) @ b[e].to(torch.float32)
+            start = end
+        return out
+    out = a.new_zeros((offs.shape[0], a.shape[0], b.shape[1]), dtype=torch.float32)
+    for e, end in enumerate(offs.tolist()):
+        if end > start:
+            out[e] = a[:, start:end].to(torch.float32) @ b[start:end].to(torch.float32)
+        start = end
+    return out
+
+
+def _op_mm(a: torch.Tensor, b: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """``torch._grouped_mm(a, b, offs=offs)``; a refusal names the
+    operands' shapes and strides."""
+    try:
+        return torch._grouped_mm(a, b, offs=offs)
+    except RuntimeError as exc:
+        raise RuntimeError(f"moe grouped product: torch._grouped_mm refused "
+                           f"{tuple(a.shape)} {a.stride()} and {tuple(b.shape)} "
+                           f"{b.stride()}: {exc}") from exc
+
+
+class GroupedMmFn(torch.autograd.Function):
+    """``product(rows, w, offs)`` under autograd, where ``product`` computes
+    ``torch._grouped_mm``'s function (the op on the card; ``_loop_mm`` in
+    the CPU tests): rows (N, K) sorted by group, w (G, K, M), offs (G,)
+    int32 cumulative ends. Backward: dRows = product(dOut, wᵀ) (each
+    group's transposed weight, a view), dW = product(rowsᵀ, dOut) (the
+    2-D × 2-D form: offsets over the rows, zeros for an empty group),
+    each cast to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, rows, w, offs, product):
+        ctx.save_for_backward(rows, w, offs)
+        ctx.product = product
+        return product(rows, w, offs)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        rows, w, offs = ctx.saved_tensors
+        d_out = d_out.contiguous()
+        d_rows = d_w = None
+        if ctx.needs_input_grad[0]:
+            d_rows = ctx.product(d_out, w.transpose(-1, -2), offs).to(rows.dtype)
+        if ctx.needs_input_grad[1]:
+            d_w = ctx.product(rows.transpose(0, 1), d_out, offs).to(w.dtype)
+        return d_rows, d_w, None, None
+
+
 def grouped_mm(rows: torch.Tensor, w: torch.Tensor, offs: torch.Tensor
                ) -> torch.Tensor:
     """``out[offs[e-1]:offs[e]] = rows[offs[e-1]:offs[e]] @ w[e]``: rows
     (N, K) sorted by group, w (G, K, M), offs (G,) int32 cumulative ends
-    (offs[-1] == N). fp32 on the CPU, bf16 on the card (fp32 accumulation
-    in both)."""
+    (offs[-1] == N). fp32 on the CPU (``_loop_mm``), bf16 on the card
+    (``GroupedMmFn`` over ``torch._grouped_mm``), fp32 accumulation in
+    both."""
     if rows.device.type == "cpu":
-        out = rows.new_zeros((rows.shape[0], w.shape[-1]), dtype=torch.float32)
-        start = 0
-        for e, end in enumerate(offs.tolist()):
-            if end > start:
-                out[start:end] = rows[start:end].to(torch.float32) @ w[e].to(torch.float32)
-            start = end
-        return out
+        return _loop_mm(rows, w, offs)
     if rows.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError(f"moe grouped product on {rows.device}: torch._grouped_mm "
                         f"takes bf16 operands only, got {rows.dtype} rows and "
                         f"{w.dtype} experts (an fp32 expert product is not "
                         f"supported on the card)")
-    op = getattr(torch, "_grouped_mm", None)
-    if op is None:
-        raise RuntimeError(f"moe grouped product: torch {torch.__version__} has no "
-                           f"torch._grouped_mm")
-    if (torch.is_grad_enabled() and (rows.requires_grad or w.requires_grad)
-            and not grouped_mm_has_backward(str(rows.device))):
-        raise NotImplementedError(f"moe training on {rows.device}: torch._grouped_mm "
-                                  f"has no backward in torch {torch.__version__}")
-    try:
-        return op(rows, w, offs=offs)
-    except RuntimeError as exc:
-        raise RuntimeError(f"moe grouped product: torch._grouped_mm refused rows "
-                           f"{tuple(rows.shape)} {rows.stride()} and experts "
-                           f"{tuple(w.shape)} {w.stride()}: {exc}") from exc
+    return GroupedMmFn.apply(rows, w, offs, _op_mm)
 
 
 @functools.cache
-def grouped_mm_has_backward(device: str) -> bool:
-    """Whether ``torch._grouped_mm`` on ``device`` differentiates: one
-    product of two groups of 8 bf16 rows, and its gradients."""
-    op = getattr(torch, "_grouped_mm", None)
-    if op is None:
-        return False
+def grouped_mm_has_backward(device: str) -> tuple[bool, str]:
+    """Whether ``torch._grouped_mm`` on ``device`` differentiates by itself
+    (one product of two groups of 8 bf16 rows, and its gradients), and the
+    error it raised where it does not ("" where it does). The port does
+    not use that backward (``GroupedMmFn``); the answer is logged."""
     with torch.enable_grad():
         rows = torch.ones((16, 16), dtype=torch.bfloat16, device=device, requires_grad=True)
         w = torch.ones((2, 16, 16), dtype=torch.bfloat16, device=device, requires_grad=True)
         offs = torch.tensor([8, 16], dtype=torch.int32, device=device)
         try:
-            torch.autograd.grad(op(rows, w, offs=offs).sum(), (rows, w))
-        except (RuntimeError, NotImplementedError):
-            return False
-    return True
+            torch.autograd.grad(torch._grouped_mm(rows, w, offs=offs).sum(), (rows, w))
+        except (RuntimeError, NotImplementedError) as exc:
+            return False, f"{type(exc).__name__}: {exc}"
+    return True, ""
 
 
 def moe_ffn_routed(x: torch.Tensor, p: dict, cfg

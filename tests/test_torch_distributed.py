@@ -28,6 +28,13 @@ the reference's init (``params_from_reference``, then ``shard_tree``).
 (d) ``make_pp_loss`` on (pod 2, data 1, model 2) with reduced llama, 4
     layers, n_micro 4: within 1e-5 (fp32) of the reference's pipeline loss
     and of the port's sequential loss (the reference's bound is 2e-3).
+    Its gradients (``loss.backward()`` on every rank, the reverse drain),
+    n_micro 1, 2 and 4, gathered: each leaf within 1e-4 of its largest
+    |grad| of ``jax.grad`` of the reference's pipeline loss and of the
+    port's sequential loss's gradients.
+(e) ``layers.row_parallel`` in bf16 on (data 2, model 2), its rows split
+    over ``model``: equal bit for bit to one device's bf16 product, on
+    inputs where bf16 partial sums would round otherwise.
 (f) A rank that raises makes ``launch_ranks`` raise, well within its
     timeout.
 
@@ -165,7 +172,9 @@ m = Model(cfg, Dist.from_mesh(mesh212))
 pp_params = dict(params)
 pp_params["stack"] = reshape_stack_for_pp(params["stack"], 2)
 pp, _ = jax.jit(make_pp_loss(m, n_micro=4))(pp_params, jb)
-out["pp"] = dict(params=npy(params), seq=float(seq), pp=float(pp))
+grads = jax.jit(jax.grad(lambda p: make_pp_loss(m, n_micro=4)(p, jb)[0]))(pp_params)
+grads["stack"] = jax.tree.map(lambda a: a.reshape(-1, *a.shape[2:]), grads["stack"])
+out["pp"] = dict(params=npy(params), seq=float(seq), pp=float(pp), grads=npy(grads))
 with open(OUT, "wb") as f:
     pickle.dump(out, f)
 """
@@ -256,16 +265,30 @@ def test_moe_ffn_ep_matches_reference(reference, moe_ranks, tp, cf):
         assert not keep.all()          # capacity 1.0 drops pairs on this seed
 
 
+def _row_parallel_inputs():
+    """a (16, 64) in {-1, 0, 1}, w (64, 32) in 512ths up to 1/4, bf16: every
+    product and sum exact in fp32 in any order, and a row split in two
+    whose bf16-rounded partials sum otherwise than the whole on this
+    seed."""
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy(rng.integers(-1, 2, (16, 64)).astype(np.float32))
+    w = torch.from_numpy((rng.integers(-128, 129, (64, 32)) / 512).astype(np.float32))
+    return a.bfloat16(), w.bfloat16()
+
+
 def _model_rank(rank, world, loss_params, pp_params, batch, family):
     """(b) the sharded granite-moe loss in fp32 and bf16 on (2, 2); (b')
-    the other families' sharded losses on (2, 2); (d) the GPipe loss of
-    llama on (2, 1, 2)."""
+    the other families' sharded losses on (2, 2); (e) the bf16 row-split
+    product on (2, 2); (d) the GPipe loss of llama on (2, 1, 2) and, rank
+    0, its gathered gradients for each n_micro."""
     from repro_torch.configs import get_config
     from repro_torch.distributed.context import Dist
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.pipeline import make_pp_loss, pp_stack_specs, reshape_stack_for_pp
-    from repro_torch.launch.sharding import shard_batch, shard_tree
-    from repro_torch.models.convert import params_from_reference
+    from repro_torch.launch.sharding import gather_tree, shard_batch, shard_tree
+    from repro_torch.models.convert import (params_from_reference, tree_leaves, tree_map,
+                                            tree_unflatten)
+    from repro_torch.models.layers import row_parallel
     from repro_torch.models.model import Model
     torch.set_num_threads(1)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
@@ -285,6 +308,11 @@ def _model_rank(rank, world, loss_params, pp_params, batch, family):
         fb = {k: torch.from_numpy(v) for k, v in ref["batch"].items()}
         with torch.no_grad():
             out[name] = float(model.loss_fn(local, shard_batch(fb, cfg, dist))[0])
+    a, w = _row_parallel_inputs()
+    k = a.shape[1] // dist.n_model
+    m = dist.coord(dist.model_axis)
+    out["row_parallel"] = row_parallel(a[:, m * k:(m + 1) * k], w[m * k:(m + 1) * k], dist,
+                                       dist.model_axis)
     cfg = get_config("llama3_2_3b").reduced(n_layers=4, vocab_size=256, dtype="float32")
     dist = Dist.from_mesh(make_mesh((2, 1, 2), ("pod", "data", "model"), "cpu"))
     model = Model(cfg, device="cpu", dist=dist)
@@ -292,13 +320,26 @@ def _model_rank(rank, world, loss_params, pp_params, batch, family):
     full["layers"] = reshape_stack_for_pp(full["layers"], 2)
     specs = dict(model.plan, layers=pp_stack_specs(model.plan["layers"], 2))
     out["pp"] = float(make_pp_loss(model, n_micro=4)(shard_tree(full, specs, dist), tb)[0])
+    out["pp_grads"] = {}
+    for n_micro in (1, 2, 4):
+        local = shard_tree(full, specs, dist)
+        leaves = tree_leaves(local)
+        for p in leaves:
+            p.requires_grad_(True)
+        make_pp_loss(model, n_micro=n_micro)(local, tb)[0].backward()
+        grads = gather_tree(tree_unflatten(local, [p.grad for p in leaves]), specs, dist)
+        # back to the sequential stack's layers: stage s's j-th is layer s·L/P + j
+        grads["layers"] = [tree_map(lambda t: t[s], layer) for s in range(dist.n_pod)
+                           for layer in grads["layers"]]
+        if rank == 0:
+            out["pp_grads"][n_micro] = [t.numpy() for t in tree_leaves(grads)]
     return out
 
 
 @pytest.fixture(scope="module")
 def model_ranks(reference):
     loss_params = {k: v["params"] for k, v in reference["loss"].items()}
-    return launch_ranks(_model_rank, 4, backend="gloo", device="cpu", timeout=240,
+    return launch_ranks(_model_rank, 4, backend="gloo", device="cpu", timeout=120,
                         args=(loss_params, reference["pp"]["params"], reference["batch"],
                               reference["family"]))
 
@@ -361,6 +402,47 @@ def test_pipeline_loss_matches_reference(reference, model_ranks):
     assert abs(ref["pp"] - ref["seq"]) <= 2e-3       # the reference's own bound
     assert abs(pp - ref["pp"]) <= 1e-5 * abs(ref["pp"])
     assert abs(pp - seq) <= 1e-5 * abs(seq)
+
+
+@pytest.mark.parametrize("n_micro", [1, 2, 4])
+def test_pipeline_grads_match_reference(reference, model_ranks, n_micro):
+    """GPipe's backward on (pod 2, data 1, model 2): every gathered leaf
+    within 1e-4 of its largest |grad| of the reference's pipeline grads
+    (``jax.grad`` of its jitted ``make_pp_loss``) and of the port's
+    sequential loss's grads."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import params_from_reference, tree_leaves
+    from repro_torch.models.model import Model
+    ref = reference["pp"]
+    cfg = get_config("llama3_2_3b").reduced(n_layers=4, vocab_size=256, dtype="float32")
+    params = params_from_reference(ref["params"], cfg, "cpu")
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    batch = {k: torch.from_numpy(v) for k, v in reference["batch"].items()}
+    seq = torch.autograd.grad(Model(cfg, device="cpu").loss_fn(params, batch)[0], leaves)
+    want = tree_leaves(params_from_reference(ref["grads"], cfg, "cpu"))
+    got = model_ranks[0]["pp_grads"][n_micro]
+    assert len(got) == len(want) == len(seq)
+    for i, (g, w, s) in enumerate(zip(got, want, seq)):
+        g = torch.from_numpy(g)
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max()), i
+        assert float((g - s).abs().max()) <= 1e-4 * float(s.abs().max()), i
+
+
+def test_row_parallel_bf16_rounds_once(model_ranks):
+    """bf16 rows split over ``model``: the partial products summed in fp32
+    and rounded once, equal bit for bit to one device's bf16 product on
+    every rank. The inputs are such that bf16 partial sums would not be."""
+    a, w = _row_parallel_inputs()
+    single = a @ w
+    assert torch.equal(single, (a.float() @ w.float()).bfloat16())
+    k = a.shape[1] // 2
+    halves = [a[:, :k].float() @ w[:k].float(), a[:, k:].float() @ w[k:].float()]
+    assert not torch.equal(halves[0].bfloat16() + halves[1].bfloat16(), single)
+    for out in model_ranks:
+        assert out["row_parallel"].dtype == torch.bfloat16
+        assert torch.equal(out["row_parallel"], single)
 
 
 def _raises(rank, world):

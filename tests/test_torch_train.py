@@ -368,21 +368,31 @@ def test_batcher_state_round_trip():
 
 
 # ------------------------------------------------------------------- MoE gate
-@pytest.mark.parametrize("has_backward", [False, True])
-def test_moe_card_training_needs_a_grouped_mm_backward(has_backward, monkeypatch):
-    """On a non-CPU tensor that requires grad, the grouped product asks
-    whether the device's ``torch._grouped_mm`` differentiates: without a
-    backward it raises ``NotImplementedError`` naming it (no switch to the
-    loop); with one it runs. "meta" tensors stand in for the card."""
+@pytest.mark.parametrize("grad_enabled", [False, True])
+def test_moe_card_training_needs_a_grouped_mm_backward(grad_enabled, monkeypatch):
+    """On a non-CPU tensor the grouped product takes ``GroupedMmFn`` over
+    ``torch._grouped_mm``, with grad enabled or not: no raise, no switch
+    to the loop ("meta" tensors stand in for the card). Its forward is the
+    bare op: on CPU bf16 tensors (torch's own CPU ``_grouped_mm``) the
+    Function's output equals the op's bit for bit, and under grad it also
+    gives each operand a gradient of its shape and dtype."""
     from repro_torch.models import moe
-    monkeypatch.setattr(moe, "grouped_mm_has_backward", lambda device: has_backward)
-    rows = torch.empty(64, 128, dtype=torch.bfloat16, device="meta", requires_grad=True)
-    w = torch.empty(8, 128, 64, dtype=torch.bfloat16, device="meta")
-    offs = torch.empty(8, dtype=torch.int32, device="meta")
-    if not has_backward:
-        with pytest.raises(NotImplementedError, match="_grouped_mm"):
-            moe.grouped_mm(rows, w, offs)
-    else:
-        assert moe.grouped_mm(rows, w, offs).shape == (64, 64)
-    with torch.no_grad():                     # serving never asks
-        assert moe.grouped_mm(rows, w, offs).shape == (64, 64)
+    applied = []
+    apply = moe.GroupedMmFn.apply
+    monkeypatch.setattr(moe.GroupedMmFn, "apply", lambda *a: applied.append(1) or apply(*a))
+    rng = np.random.default_rng(5)
+    rows = torch.from_numpy(rng.standard_normal((64, 128)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(rng.standard_normal((8, 128, 64)).astype(np.float32)).bfloat16()
+    offs = torch.tensor([5, 5, 20, 33, 33, 40, 51, 64], dtype=torch.int32)
+    meta = [t.to("meta").requires_grad_(t.is_floating_point()) for t in (rows, w, offs)]
+    with torch.set_grad_enabled(grad_enabled):
+        assert moe.grouped_mm(*meta).shape == (64, 64)
+        r, ww = rows.clone().requires_grad_(), w.clone().requires_grad_()
+        got = moe.GroupedMmFn.apply(r, ww, offs, moe._op_mm)
+    assert len(applied) == 2
+    assert torch.equal(got, torch._grouped_mm(rows, w, offs=offs))
+    assert (got.grad_fn is not None) == grad_enabled
+    if grad_enabled:
+        grads = torch.autograd.grad(got.float().sum(), (r, ww))
+        assert [(g.shape, g.dtype) for g in grads] == [(rows.shape, rows.dtype),
+                                                       (w.shape, w.dtype)]
