@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive repro_torch's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--phases build,kernels,index,main,parity,shard,sim,serve,
-                                    encdec_vlm,train,dist,dist_serve]
+    python3 chip_smoke.py [--phases build,contracts,kernels,index,main,parity,shard,sim,
+                                    serve,encdec_vlm,train,dist,dist_serve]
 
 Run from the root of a checkout: it puts ``src/`` on ``sys.path`` itself,
 builds the CUDA kernels into ``build/repro_torch/`` with ``nvcc`` (sm_90a)
@@ -10,6 +10,22 @@ and needs one card. It imports nothing of JAX or of the ``repro`` package.
 Phases (any failure exits non-zero and prints no result):
 
 1. build   — compile ``src/repro_torch/csrc/*.cu`` (one nvcc per source);
+   contracts — ``python -m repro_torch.analysis.check``'s sections on the
+             card: the op-trace rules on {flat, hnsw} x {fp32, int8} (the
+             searches under ``torch.cuda.set_sync_debug_mode("error")``),
+             the compile budget (captures per batch bucket and shard), the
+             mirror and span lints; the caching allocator's peak around
+             one eager search and one delta flush of each cell (no
+             (B, F·M, d) fp32 gather, no fp32 copy of an int8 table, no
+             copy of a whole table); and the kernel budgets: each entry
+             function's registers × block threads <= 65,536, static +
+             dynamic shared memory <= the card's opt-in limit and no
+             spill, from this build's ``-Xptxas -v`` report, with each
+             cache kernel launched at the reference's shape families
+             (flat_topk N 4,096 / 65,536 / 1,048,576 x B 8 / 128,
+             gather_scores(_masked) B 8 K 256 and B 128 K 1,024,
+             frontier_hop B 8 / 128 F = M = 32, scatter_rows R 8 / 1,024
+             / 8,192; fp32 and int8) against its plain version;
 2. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes: the cache kernels in fp32 and int8
              (frontier_hop also with every query done, with one live
@@ -281,7 +297,9 @@ Phases (any failure exits non-zero and prints no result):
              prefill and decode ms, peak GiB, the staged transfers' count
              and ms by operation, the launches per call.
 
-The last lines are a ``{"kernels": [...]}`` object (``launches``: those
+The last lines are a ``{"kernels": [...]}`` object (``registers``,
+``smem_static`` and ``spill_bytes``: the ``contracts`` phase's, from this
+build's report, the most over the kernel's entry functions; ``launches``: those
 made at wrapper calls in the run of the kernel's path; ``replay_launches``:
 those its graphs' replays made, each graph's recorded launches times its
 replays; for the cache kernels also ``shard`` and ``sim``, the same counts
@@ -414,6 +432,116 @@ def max_err(a, b, torch) -> float:
     if not bool(fin.any()):
         return 0.0
     return float((a[fin] - b[fin]).abs().max())
+
+
+# ------------------------------------------------------------ phase contracts
+def alloc_growth(torch, fn) -> int:
+    """Bytes the caching allocator held at its peak during ``fn()`` beyond
+    what it held before: an upper bound on any one allocation ``fn`` made."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_stats()["allocated_bytes.all.current"]
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_stats()["allocated_bytes.all.peak"] - base
+
+
+def eager_search(torch, index, B: int = 8):
+    """The index's classified search run eagerly (no graph) on its device
+    tables, inputs on the card beforehand: ``fn()`` for ``alloc_growth``."""
+    import numpy as np
+    from repro_torch.core import hnsw as H
+    t = index.device_tables()
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((B, index.dim)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    dev = index.device
+    q = torch.from_numpy(q).to(dev)
+    tau = torch.full((B,), 0.9, device=dev)
+    qc = (torch.arange(B, device=dev) % 2).to(torch.int32)
+    ttl = torch.full((B,), 60.0, device=dev)
+    now = torch.zeros((), device=dev)
+    if isinstance(index, H.FlatIndex):
+        return lambda: H._flat_search_classified(t["emb"], t["valid"], t["category"],
+                                                 t["inserted"], q, tau, qc, ttl, now,
+                                                 t.get("scale"))
+    p = index.p
+    return lambda: H.beam_search_classified(
+        t["emb"], t["neighbors"], t["valid"], t["entries"], t["inserted"], q, tau, ttl, now,
+        t["category"], qc, t.get("scale"), beam=p.beam, max_hops=p.max_hops,
+        hop_impl="fused")
+
+
+def check_allocations(torch) -> None:
+    """The caching allocator's evidence beside the op-trace rules, for each
+    contract cell: an eager search allocates less than B·F·M·d·4 bytes at
+    its peak (no (B, F·M, d) fp32 gather; for flat, B·N·d·4), an int8
+    search less than N·d·4 (no fp32 copy of its table), and a delta flush
+    less than its embedding table (no copy of a whole table)."""
+    import numpy as np
+    from repro_torch.analysis import contracts
+    for kind in ("flat", "hnsw"):
+        for dtype in ("float32", "int8"):
+            idx = contracts.build_index(kind, dtype, device="cuda")
+            search = eager_search(torch, idx)
+            search()                                   # warm: cuBLAS, the build
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                grew = alloc_growth(torch, search)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            N, d = idx.capacity, idx.dim
+            K = N if kind == "flat" else idx.p.beam * idx.p.M0
+            limit = 8 * K * d * 4
+            if dtype == "int8":
+                limit = min(limit, N * d * 4)
+            require(grew < limit, f"contracts {kind}/{dtype}: an eager search's allocations "
+                                  f"peaked {grew} bytes above the start (limit {limit})")
+            table = idx.device_tables()["emb"].nbytes
+            rng = np.random.default_rng(6)
+            vecs = rng.standard_normal((8, d)).astype(np.float32)
+            idx.add_batch(vecs / np.linalg.norm(vecs, axis=1, keepdims=True),
+                          np.zeros(8, np.int32))
+            before = idx.sync_stats["delta_updates"]
+            flush_grew = alloc_growth(torch, idx.device_tables)
+            require(idx.sync_stats["delta_updates"] == before + 1,
+                    f"contracts {kind}/{dtype}: the flush was not a delta")
+            require(flush_grew < table, f"contracts {kind}/{dtype}: a delta flush's "
+                                        f"allocations peaked {flush_grew} bytes (its table "
+                                        f"is {table})")
+            log(f"contracts {kind}/{dtype}: eager search peak +{grew} B (limit {limit}), "
+                f"delta flush peak +{flush_grew} B (table {table} B), searches under "
+                f"sync debug \"error\"")
+
+
+def run_contracts_phase(torch, dev) -> dict:
+    """``python -m repro_torch.analysis.check``'s sections on the card (the
+    op-trace rules with the searches under sync debug "error", the compile
+    budget with the captures counted, the two lints), the allocator's
+    evidence (``check_allocations``) and the kernel budgets: every entry
+    function's registers, static shared memory and spills from this
+    build's ``-Xptxas -v`` report against the card's limits, and each
+    cache kernel at the reference's shape families (``smem.SHAPE_FAMILIES``,
+    fp32 and int8) against its plain version. Returns each kernel row's
+    ``registers``, ``smem_static`` and ``spill_bytes``."""
+    from repro_torch.analysis import check, smem
+    viols = []
+    for title, fn, _ in check.SECTIONS:
+        log(f"contracts [{title}]")
+        viols += fn("cuda", log)
+    require(not viols, "contracts: " + "; ".join(str(v) for v in viols))
+    check_allocations(torch)
+    resources = smem.parse_ptxas(smem.build_log().read_text())
+    budgets = {name: smem.kernel_resources(resources, name) for name in KERNELS}
+    for name, b in budgets.items():
+        log(f"contracts: {name} (most over its entry functions) {b['registers']} registers, "
+            f"{b['smem_static']} B static smem, {b['spill_bytes']} B spills")
+    for k in resources:
+        if k.spill_bytes:
+            log(f"contracts: spill {k.source}:{k.entry} {k.spill_bytes} B: "
+                f"{smem.SPILL_REASONS[k.entry]}")
+    return budgets
 
 
 # ---------------------------------------------------------------- phase 2
@@ -5096,8 +5224,8 @@ SERVE_KERNELS = {"flash_attention": "llama3.2-3b", "decode_attention": "llama3.2
 KERNEL_WRAPPERS = {"scatter_rows": ("scatter_flush", "scatter_rows")}
 
 
-PHASES = ("build", "kernels", "index", "main", "parity", "shard", "sim", "serve",
-          "encdec_vlm", "train", "dist", "dist_serve")
+PHASES = ("build", "contracts", "kernels", "index", "main", "parity", "shard", "sim",
+          "serve", "encdec_vlm", "train", "dist", "dist_serve")
 
 
 def main(argv: list[str]) -> int:
@@ -5136,6 +5264,10 @@ def main(argv: list[str]) -> int:
         for line in (lib.parent / "build.log").read_text().splitlines():
             if "registers" in line or "rc " in line:
                 log(f"build: {line.strip()}")
+        if "contracts" in phases:
+            t0 = time.perf_counter()
+            budgets = run_contracts_phase(torch, dev)
+            log_card(f"phase contracts: {time.perf_counter() - t0:.1f} s")
         if "kernels" in phases:
             t0 = time.perf_counter()
             numbers = check_kernels(torch, dev)
@@ -5229,6 +5361,7 @@ def main(argv: list[str]) -> int:
                "launches": sum(launches[w] for w in KERNEL_WRAPPERS.get(name, (name,))),
                "replay_launches": replayed.get(name, 0)}
         row.update({f: numbers[key][f] for f in fields if f in numbers[key]})
+        row.update(budgets[name])       # this build's registers, static smem, spills
         if name in SERVE_KERNELS:   # each served model's run that launched it
             row["serve"] = {a: {"launches": out["launches"][name],
                                 "replay_launches": out["replay_launches"][name]}

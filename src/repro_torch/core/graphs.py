@@ -42,6 +42,7 @@ and its model), one per key:
 
 from __future__ import annotations
 
+import gc
 from collections.abc import Callable, Sequence
 from dataclasses import dataclass, field
 
@@ -205,9 +206,18 @@ class CapturedProgram:
 
     def _record(self, fn: Callable, views: list):
         """Capture ``fn`` on the side stream into this holder's pool:
-        returns (graph, its output)."""
+        returns (graph, its output). Python's cyclic collector is off while
+        it captures: a collection then could free another owner's dropped
+        graphs, and destroying a graph during a capture invalidates it
+        (``torch.cuda.graph`` no longer collects at its entry)."""
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
-            out = fn(*views)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+                out = fn(*views)
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.current_stream(self.device).wait_stream(self._stream)
         return graph, out

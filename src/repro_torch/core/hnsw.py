@@ -286,8 +286,8 @@ class DeviceResidentIndex:
         write (callers already mark the row dirty)."""
         if self.quantized:
             q, s = quantize_rows(vec[None])
-            self.emb_q[slot] = q[0]
-            self.emb_scale[slot] = s[0]
+            self.emb_q[slot] = q[0]        # mirror-ok
+            self.emb_scale[slot] = s[0]    # mirror-ok
 
     def export_rows(self, slots: np.ndarray) -> dict[str, np.ndarray]:
         """Copy the per-slot tables for ``slots`` out of the index (fp32
@@ -1175,11 +1175,14 @@ def reference_state(index) -> dict:
 
 
 def _load_common(idx: DeviceResidentIndex, state: dict) -> None:
+    """Fill a NEW index's host tables from ``state``. It has no device
+    mirror yet, so its first ``device_tables()`` is a full upload of every
+    row whatever the dirty log holds; the log is the state's own."""
     for k in ("emb", "valid", "category", "inserted"):
         getattr(idx, k)[...] = state[k]
     if idx.quantized:
-        idx.emb_q[...] = state["emb_q"]
-        idx.emb_scale[...] = state["emb_scale"]
+        idx.emb_q[...] = state["emb_q"]           # mirror-ok: new index, full upload
+        idx.emb_scale[...] = state["emb_scale"]   # mirror-ok: new index, full upload
     idx._n = int(state["_n"])
     idx._free = [int(s) for s in state["_free"]]
     idx._dirty = {int(s) for s in state["_dirty"]}
