@@ -223,6 +223,15 @@ class SemanticCache:
             return NULL_SPAN
         return self.obs.span(stage, shard=self._obs_shard, **attrs)
 
+    def _device_span(self, stage: str, **attrs):
+        """Span timed on the card (``TraceRecorder.device_span``), resolved
+        at the recorder's ``sync_point`` after the search's host copy; the
+        shared no-op span without a recorder or off the card."""
+        if self.obs is None:
+            return NULL_SPAN
+        return self.obs.device_span(stage, self.index.device,
+                                    shard=self._obs_shard, **attrs)
+
     def _event(self, name: str, **fields) -> None:
         if self.obs is not None:
             self.obs.event(name, shard=self._obs_shard, **fields)
@@ -273,7 +282,9 @@ class SemanticCache:
         # Span "search" covers the search-latency charge, the index
         # traversal and the single device→host sync; the fp32 re-rank
         # tier gets a SIBLING span so its borderline store fetches are
-        # attributed separately from the traversal.
+        # attributed separately from the traversal. On the card the
+        # delta flush and the search replay are a device span inside it,
+        # "search_device", that ends before the host copy.
         with self._span("search", batch=len(active)):
             self.clock.advance(self.search_ms / 1e3)
             q = embeddings[active]
@@ -288,10 +299,13 @@ class SemanticCache:
                 # the only host sync is this single copy — the Python
                 # below then touches actual hits (doc fetch) and
                 # expirations (evict), not all B results.
-                self.index.search_classified(q, taus, categories=qcats,
-                                             ttls=ttls, now=now)
+                with self._device_span("search_device", batch=len(active)):
+                    self.index.search_classified(q, taus, categories=qcats,
+                                                 ttls=ttls, now=now)
                 ls = self.index.last_search
                 res = self.index.last_search_host()
+                if self.obs is not None:    # the copy drained the stream
+                    self.obs.sync_point()
                 idxs = np.asarray(res["idx"], np.int64)
                 scores = np.asarray(res["score"], np.float64)
                 cls = np.array(res["cls"])  # writable: the re-rank tier may edit
@@ -709,8 +723,10 @@ class SemanticCache:
         # store must not serialize timestamps relative to this process's
         # private _t0.
         # Span "write": the store pass + index pass (store put retries
-        # charge their backoff inside this span).
-        with self._span("write", items=len(pending)):
+        # charge their backoff inside this span); its ``index_add_ms`` is
+        # the index pass alone (the host graph wiring) on the recorder's
+        # clock.
+        with self._span("write", items=len(pending)) as span:
             created_at = self.clock.now()
             docs = []
             for p_i, _, _ in pending:
@@ -729,9 +745,12 @@ class SemanticCache:
             self.store.put_many(docs)
             order = [p_i for p_i, _, _ in pending]
             # The index owns the category table (slot_category aliases it).
+            t_add = self.obs.clock.now() if self.obs is not None else 0.0
             slots = self.index.add_batch(
                 embeddings[order],
                 np.asarray([cid for _, cid, _ in pending], np.int32))
+            if self.obs is not None:
+                span.set(index_add_ms=(self.obs.clock.now() - t_add) * 1e3)
             for (p_i, _, _), slot, doc in zip(pending, slots, docs):
                 slot = int(slot)
                 self.slot_inserted[slot] = now

@@ -8,10 +8,21 @@ stream (faults, failovers, write-behind, migrations, rebalances,
 evictions, retries) and feeds the stage/category/shard histogram set
 on every span close.
 
+Device spans (``device_span``) time work on the card: a timing event
+recorded on the current stream when the span opens and one when it
+closes, nothing else. They resolve onto the recorder's own clock at the
+next ``sync_point()``, which a caller makes right after a device→host
+copy it already makes: the stream is drained there, so one anchor event
+recorded at a known ``clock.now()`` places every pending event, and the
+card's timer is re-anchored at every sync and never drifts from the
+clock. A device span is marked ``on="device"``; its parent is the
+innermost open host span and it is never a parent itself.
+
 Contract ("empty-recorder parity", mirroring the fault injector's
 empty schedule): every instrumented call site goes through a no-op
 null span when the recorder is absent, so tracing off leaves counters
-and device bytes bit-identical to the untraced build.
+and device bytes bit-identical to the untraced build and records no
+timing event on the card.
 
 Span-accounting invariant (enforced by ``check_span_accounting``):
 
@@ -20,6 +31,11 @@ Span-accounting invariant (enforced by ``check_span_accounting``):
 * under ``SimClock`` with the simulator store stack, all clock charges
   happen inside *leaf* spans, so for every root span the sum of its
   leaf descendants' durations equals the root duration exactly.
+
+Device spans sit outside this host accounting: they are not counted in
+``opened`` / ``closed``, and ``span_accounting`` and
+``coverage_fraction`` skip them, since the card's time overlaps the host
+time of the span that launched it.
 
 Under ``WallClock`` real time accrues between spans, so the equality
 becomes a coverage fraction — report it, never assert it.
@@ -45,6 +61,7 @@ class Span:
     t0: float
     dur_ms: float | None = None
     attrs: dict = field(default_factory=dict)
+    on: str = "host"            # "device": timed on the card (``device_span``)
 
 
 @dataclass
@@ -92,17 +109,62 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
+class _DeviceSpanHandle:
+    """Context manager for one device span: a timing event on entry and
+    one on exit; the recorder resolves both at its next ``sync_point``."""
+
+    __slots__ = ("_rec", "span", "_start")
+
+    def __init__(self, rec: "TraceRecorder", span: Span) -> None:
+        self._rec = rec
+        self.span = span
+
+    def set(self, **attrs) -> None:
+        self.span.attrs.update(attrs)
+
+    def __enter__(self) -> "_DeviceSpanHandle":
+        self._start = self._rec.timer.record()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self._rec._pending.append((self.span, self._start,
+                                   self._rec.timer.record()))
+        return False
+
+
+class CudaEventTimer:
+    """The card's timer: ``record`` puts a timing event on the current
+    CUDA stream; ``elapsed_ms`` reads two completed events."""
+
+    def record(self):
+        import torch
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def wait(self, ev) -> None:
+        ev.synchronize()
+
+    def elapsed_ms(self, a, b) -> float:
+        return a.elapsed_time(b)
+
+
 class TraceRecorder:
     """Clock-timed span tree + event stream + latency histograms."""
 
-    def __init__(self, clock) -> None:
+    def __init__(self, clock, timer=None) -> None:
         self.clock = clock
+        # The device spans' timer: None times them with CUDA events, and
+        # only on a CUDA device; a timer passed in (``record``, ``wait``,
+        # ``elapsed_ms``) times them on any device.
+        self.timer = timer
         self.spans: list[Span] = []
         self.events: list[Event] = []
         self.hist = HistogramSet()
         self.opened = 0
         self.closed = 0
         self._stack: list[int] = []
+        self._pending: list[tuple] = []     # (span, start event, end event)
 
     # -- spans ---------------------------------------------------------
     def span(self, stage: str, *, category: str = "", shard: int = -1,
@@ -114,6 +176,41 @@ class TraceRecorder:
         self._stack.append(sp.span_id)
         self.opened += 1
         return _SpanHandle(self, sp)
+
+    def device_span(self, stage: str, device, *, category: str = "",
+                    shard: int = -1, **attrs):
+        """A span timed on the card around the work launched inside it;
+        ``NULL_SPAN`` where ``device`` is not CUDA and no timer was
+        passed in. Its ``t0`` is the host clock at opening and its
+        ``dur_ms`` None until the next ``sync_point()`` sets both."""
+        if self.timer is None:
+            if getattr(device, "type", device) != "cuda":
+                return NULL_SPAN
+            self.timer = CudaEventTimer()
+        parent = self._stack[-1] if self._stack else NO_PARENT
+        sp = Span(len(self.spans), parent, stage, category, shard,
+                  self.clock.now(), attrs=dict(attrs), on="device")
+        self.spans.append(sp)
+        return _DeviceSpanHandle(self, sp)
+
+    def sync_point(self) -> None:
+        """Resolve the pending device spans onto this recorder's clock.
+        Call right after a device→host copy: the stream is drained, so
+        an anchor event recorded now completes at once, at ``clock.now()``,
+        and each event's time is the anchor's less the card's time
+        between them."""
+        if not self._pending:
+            return
+        timer = self.timer
+        anchor = timer.record()
+        t_anchor = self.clock.now()
+        timer.wait(anchor)
+        for sp, start, end in self._pending:
+            sp.t0 = t_anchor - timer.elapsed_ms(start, anchor) / 1e3
+            sp.dur_ms = timer.elapsed_ms(start, end)
+            self.hist.observe(sp.stage, sp.dur_ms,
+                              category=sp.category, shard=sp.shard)
+        self._pending.clear()
 
     def _close(self, sp: Span) -> None:
         # ``with`` blocks unwind LIFO even under exceptions, so the
@@ -152,7 +249,8 @@ class TraceRecorder:
                      "t0": round(sp.t0, 9),
                      "dur_ms": (None if sp.dur_ms is None
                                 else round(sp.dur_ms, 9)),
-                     "attrs": sp.attrs}, sort_keys=True) + "\n")
+                     "attrs": sp.attrs, "on": sp.on},
+                    sort_keys=True) + "\n")
                 n += 1
             for ev in self.events:
                 f.write(json.dumps(
@@ -165,10 +263,18 @@ class TraceRecorder:
 
 # -- span accounting ----------------------------------------------------
 
+def _on_host(sp) -> bool:
+    """Whether ``sp`` is a host span (a span without ``on`` is: the
+    reference's spans have none)."""
+    return getattr(sp, "on", "host") == "host"
+
+
 def _children_map(spans: list[Span]) -> dict[int, list[Span]]:
+    """Host spans by parent: device spans sit outside the accounting."""
     kids: dict[int, list[Span]] = {}
     for sp in spans:
-        kids.setdefault(sp.parent_id, []).append(sp)
+        if _on_host(sp):
+            kids.setdefault(sp.parent_id, []).append(sp)
     return kids
 
 
@@ -200,7 +306,8 @@ def span_accounting(rec: TraceRecorder, eps_ms: float = 1e-6) -> dict:
         if gap > eps_ms:
             gaps.append((root.span_id, root.stage, gap))
     return {"opened": rec.opened, "closed": rec.closed,
-            "spans": len(rec.spans), "roots": len(roots),
+            "spans": sum(map(_on_host, rec.spans)),
+            "roots": len(roots),
             "max_gap_ms": max_gap, "gapped_roots": gaps}
 
 

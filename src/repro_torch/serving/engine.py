@@ -132,7 +132,7 @@ class EngineStats:
 
 @torch.inference_mode()
 def generate(programs: CapturedProgram, model: Model, params, batch: dict,
-             max_len: int, max_new: int, *, finite: bool = False) -> dict:
+             max_len: int, max_new: int, *, finite: bool = False, obs=None) -> dict:
     """Greedy generation of ``max_new`` tokens through ``programs``, keyed
     by batch size B. ``batch["tokens"]`` is the (B, T) int32 numpy prompt,
     copied into the prefill program's static input; any other entry (a
@@ -145,7 +145,11 @@ def generate(programs: CapturedProgram, model: Model, params, batch: dict,
     ANDing whether every step's logits were finite. Under a mesh
     ``batch["tokens"]`` is the global prompt, of which this rank takes its
     rows (``Model.rows``), any other entry is this rank's rows, and the
-    state is this rank's rows."""
+    state is this rank's rows. With a ``TraceRecorder`` as ``obs`` every
+    replay is a device span (``prefill``, then ``decode`` with its
+    ``step``, each with ``batch``), left for the caller's
+    ``obs.sync_point()`` after its copy of the tokens; a call that
+    captures opens none."""
     V = model.cfg.vocab_size
     tokens = batch["tokens"]
     extra = {k: v for k, v in batch.items() if k != "tokens"}
@@ -178,6 +182,11 @@ def generate(programs: CapturedProgram, model: Model, params, batch: dict,
         if finite:
             state["finite"].logical_and_(torch.isfinite(logits[:, :V]).all())
 
+    def timed(stage, **attrs):
+        if obs is None:
+            return NULL_SPAN
+        return obs.device_span(stage, model.device, batch=B, **attrs)
+
     pre, dec = ("prefill", B), ("decode", B)
     if not programs.ready(dec):
         # First use of B on the card: capture prefill, and replay it so
@@ -185,9 +194,12 @@ def generate(programs: CapturedProgram, model: Model, params, batch: dict,
         # of prefill below starts the generation afresh).
         state = programs.run(pre, prefill, [tokens])
         programs.capture(dec, decode)
-    state = programs.run(pre, prefill, [tokens])
-    for _ in range(max_new - 1):
-        programs.run(dec, decode)
+        obs = None                      # a capturing call times no replay
+    with timed("prefill"):
+        state = programs.run(pre, prefill, [tokens])
+    for j in range(1, max_new):
+        with timed("decode", step=j):
+            programs.run(dec, decode)
     return state
 
 
@@ -212,6 +224,11 @@ class ServingEngine:
         # so cache stage spans nest under the engine_step root. Wall
         # time is not exhaustively charged, so span accounting reports
         # leaf COVERAGE here, never equality (SimClock-only invariant).
+        # On the card every graph replay of a generation is also a device
+        # span (``prefill``, ``decode``) under ``model_generate``, as the
+        # cache's index search is (``search_device`` under ``search``),
+        # timed by CUDA events and placed on the recorder's clock at the
+        # host copy that follows; without a recorder no event is made.
         self.obs = obs
         self.embedder = FeatureHashEmbedder()
         self.max_batch = max_batch
@@ -258,13 +275,16 @@ class ServingEngine:
 
     def _run(self, params, tokens: np.ndarray) -> np.ndarray:
         state = generate(self.programs, self.model, params, {"tokens": tokens},
-                         self._max_len, self.max_new)
+                         self._max_len, self.max_new, obs=self.obs)
         out = state["out"]
         if self.model.meshed:           # every rank's rows, on every rank
             from repro_torch.launch.sharding import batch_spec
             dist = self.model.dist
             out = coll.gather_value(out, 0, dist, batch_spec(dist, tokens.shape[0]))
-        return out.cpu().numpy()
+        out = out.cpu().numpy()
+        if self.obs is not None:        # the copy drained the stream
+            self.obs.sync_point()
+        return out
 
     def follow(self) -> list[np.ndarray]:
         """A follower rank's loop (under a mesh, every rank but 0): each
