@@ -1809,7 +1809,11 @@ TRACE_KERNELS = {"frontier_hop": ("frontier_hop_kernel",),
                  "flat_topk": ("flat_topk_partial_kernel",),
                  "flash_attention": ("flash_wgmma_kernel", "flash_kernel"),
                  "decode_attention": ("decode_kernel",),
-                 "mamba_scan": ("mamba_scan_kernel", "mamba_step_kernel")}
+                 "mamba_scan": ("mamba_scan_kernel", "mamba_step_kernel"),
+                 "moe_route": ("moe_route_kernel",),
+                 "moe_dispatch": ("moe_dispatch_kernel",),
+                 "swiglu_cast": ("swiglu_cast_kernel",),
+                 "moe_combine": ("moe_combine_kernel",)}
 
 
 def port_kernels(events):
@@ -2439,8 +2443,10 @@ def run_sharded_serve(torch, counters, n_requests: int) -> dict:
 SERVE_ARCHS = ("llama3.2-3b", "falcon-mamba-7b", "granite-moe-3b-a800m")
 # The model kernels each family's generation runs, once per layer of every
 # prefill and / or decode step (moe: granite-moe, every layer attention).
+MOE_KERNELS = ("moe_route", "moe_dispatch", "swiglu_cast", "moe_combine")
 SERVE_PATH = {"dense": {"flash_attention": ("prefill",), "decode_attention": ("decode",)},
-              "moe": {"flash_attention": ("prefill",), "decode_attention": ("decode",)},
+              "moe": {"flash_attention": ("prefill",), "decode_attention": ("decode",),
+                      **{k: ("prefill", "decode") for k in MOE_KERNELS}},
               "ssm": {"mamba_scan": ("prefill", "decode")}}
 EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 # bf16 logits (magnitude ~4): card and CPU, or decode and prefill, round
@@ -2684,6 +2690,10 @@ def run_serve(torch, counters, arch: str, n_requests: int) -> dict:
         f"{step['fp32_head_extra_ms']:.4f} ms")
     for name, text in timer.profiles.items():
         log(f"serve {arch}: profile of one {name} replay: {text}")
+    for kind in GenerateTimer.KINDS:
+        key = max((k for k in programs.keys() if k[0] == kind), key=lambda k: k[1])
+        log(f"serve {arch}: launches recorded by the {key} graph: "
+            f"{ {fn.__name__: n for fn, n in programs.recorded(key).items()} }")
     rng = np.random.default_rng(11)
     for B in (8, 3):
         toks = rng.integers(2, cfg.vocab_size, (B, 64)).astype(np.int32)
@@ -3003,7 +3013,8 @@ def check_hybrid(torch, counters) -> dict:
     prefills, decodes = 2, 1 + steps
     want = {"mamba_scan": kinds.count("mamba") * (prefills + decodes),
             "flash_attention": kinds.count("attn") * prefills,
-            "decode_attention": kinds.count("attn") * decodes}
+            "decode_attention": kinds.count("attn") * decodes,
+            **{k: cfg.mlp_kinds().count("moe") * (prefills + decodes) for k in MOE_KERNELS}}
     require(counts == want, f"model {HYBRID_ARCH}: launches {counts}, not {want} "
             f"({prefills} prefills and {decodes} decode steps)")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3212,16 +3223,116 @@ def route_ties(torch, moe, cfg, T: int) -> int:
     return straddle
 
 
+def bf16_ulps(torch, a, b) -> int:
+    """The largest distance in bf16 steps between two bf16 tensors."""
+    def ordered(t):
+        u = t.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+        return torch.where(u >= 0x8000, -(u & 0x7FFF), u)
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def route_flips(torch, x, w, plain_ids, ids, label: str) -> int:
+    """The routing kernel's choices against the plain version's on the same
+    input (``near_ties``' rule with the two router products' own rounding
+    as their difference): a token whose choice differs must have its k-th
+    and (k+1)-th logits within twice the bound on two fp32 sums of d
+    products in different orders, d·2^-24·Σ|x·w|. Returns the flips."""
+    xf, wf = x.float().cpu(), w.float().cpu()
+    logits = xf.double() @ wf.double()
+    k = ids.shape[1]
+    top = logits.sort(dim=1, descending=True).values
+    margin = top[:, k - 1] - top[:, k]
+    noise = xf.shape[1] * 2.0 ** -24 * (xf.abs() @ wf.abs()).max(dim=1).values
+    flips = 0
+    for t in range(ids.shape[0]):
+        if set(plain_ids[t].tolist()) != set(ids[t].tolist()):
+            flips += 1
+            require(float(margin[t]) <= 2 * float(noise[t]) + 1e-6,
+                    f"{label}: token {t} routed to {ids[t].tolist()} by the kernel, "
+                    f"{plain_ids[t].tolist()} by the plain version, margin "
+                    f"{float(margin[t])} beyond twice the rounding bound {float(noise[t])}")
+    return flips
+
+
+def check_moe_kernels(torch, moe, mf, p, cfg, x) -> dict:
+    """Each of ``moe_fused``'s kernels against its plain version on the
+    card, on one input: routing (ids equal but at near ties, weights
+    within 1e-5 where the ids agree), dispatch (order, offsets and rows
+    bit for bit, on the kernel's ids), SwiGLU and combine (within one bf16
+    step), and each kernel's device time beside the plain version's."""
+    from repro_torch.kernels import ops
+    k, E = cfg.moe_top_k, cfg.n_experts
+    before = {f.__name__: (f.launches, f.recorded) for f in
+              (mf.moe_route, mf.moe_dispatch, mf.swiglu_cast, mf.moe_combine)}
+    _, plain_ids, plain_w = mf.route_plain(x, p["router"], k)
+    ids, weights = ops.moe_route(x, p["router"], k)
+    flips = route_flips(torch, x, p["router"], plain_ids.cpu(), ids.cpu(),
+                        f"moe_route {cfg.name} T {x.shape[0]}")
+    same = (plain_ids.to(torch.int32) == ids).all(dim=1)
+    werr = float((weights - plain_w)[same].abs().max()) if bool(same.any()) else 0.0
+    require(werr <= 1e-5, f"moe_route: weights {werr} from the plain version's")
+    order, offs, rows = ops.moe_dispatch(ids, x, E)
+    p_order, p_offs, p_rows = mf.dispatch_plain(ids, x, E)
+    require(torch.equal(order.long(), p_order) and torch.equal(offs, p_offs)
+            and torch.equal(rows, p_rows), "moe_dispatch: order, offs or rows differ "
+            "from the stable sort's")
+    g = moe.grouped_mm(rows, p["w_gate"], offs)
+    u = moe.grouped_mm(rows, p["w_up"], offs)
+    hidden = ops.swiglu_cast(g, u, x.dtype)
+    s_ulps = bf16_ulps(torch, hidden, mf.swiglu_plain(g, u, x.dtype))
+    part = moe.grouped_mm(hidden, p["w_down"], offs)
+    y = ops.moe_combine(part, order, weights)
+    c_ulps = bf16_ulps(torch, y, mf.combine_plain(part, p_order, weights))
+    require(s_ulps <= 1 and c_ulps <= 1, f"swiglu_cast {s_ulps}, moe_combine {c_ulps} "
+            f"bf16 steps from their plain versions (at most 1); combine's largest |dy| "
+            f"{float((y.float() - mf.combine_plain(part, p_order, weights).float()).abs().max())}"
+            f" of max |y| {float(y.float().abs().max())}")
+    times = dict(
+        route_ms=graph_ms(torch, [lambda: ops.moe_route(x, p["router"], k)]),
+        route_plain_ms=graph_ms(torch, [lambda: mf.route_plain(x, p["router"], k)]),
+        dispatch_ms=graph_ms(torch, [lambda: ops.moe_dispatch(ids, x, E)]),
+        dispatch_plain_ms=graph_ms(torch, [lambda: mf.dispatch_plain(ids, x, E)]),
+        swiglu_ms=graph_ms(torch, [lambda: ops.swiglu_cast(g, u, x.dtype)]),
+        swiglu_plain_ms=graph_ms(torch, [lambda: mf.swiglu_plain(g, u, x.dtype)]),
+        combine_ms=graph_ms(torch, [lambda: ops.moe_combine(part, order, weights)]),
+        combine_plain_ms=graph_ms(torch, [lambda: mf.combine_plain(part, p_order, weights)]))
+    return dict(route_flips=flips, route_weight_err=werr, swiglu_ulps=s_ulps,
+                combine_ulps=c_ulps, **times,
+                launches={n: (f.launches - before[n][0], f.recorded - before[n][1])
+                          for n, f in ((f.__name__, f) for f in (
+                              mf.moe_route, mf.moe_dispatch, mf.swiglu_cast,
+                              mf.moe_combine))})
+
+
+def chain_ffn(torch, moe, mf, x, p, cfg):
+    """The routed FFN as PyTorch ops on the card, the Switch loss included:
+    the path serving took before the kernels (``moe_fused``'s plain
+    versions), timed beside it."""
+    k, E = cfg.moe_top_k, cfg.n_experts
+    probs, ids, weights = mf.route_plain(x, p["router"], k)
+    aux = moe._switch_aux(probs, ids)
+    order, offs, rows = mf.dispatch_plain(ids.to(torch.int32), x, E)
+    g = moe.grouped_mm(rows, p["w_gate"], offs)
+    u = moe.grouped_mm(rows, p["w_up"], offs)
+    hidden = mf.swiglu_plain(g, u, x.dtype)
+    part = moe.grouped_mm(hidden, p["w_down"], offs).to(x.dtype)
+    return mf.combine_plain(part, order, weights), aux
+
+
 def check_moe_ffn(torch) -> dict:
-    """The routed MoE FFN (the main path: ``torch._grouped_mm`` on the card)
+    """The routed MoE FFN as serving runs it (``moe_ffn_routed`` without
+    aux: ``moe_fused``'s kernels around ``torch._grouped_mm`` on the card)
     against the dense exact path (every expert in fp32) on the same card,
     seeded bf16 inputs, at granite-moe's layer (T 512: a prefill of 8 x
     64; T 8: a decode step at batch 8) and jamba's (T 128: 2 x 64), each
-    timed (CUDA events around graph replays) beside the dense path and
-    the bound (the experts this run's tokens reach, their weight bytes at
-    the HBM rate, or the routed products at the bf16 rate), and route's
-    ties at granite's width."""
+    timed (CUDA events around graph replays) beside the op chain it
+    replaced (``chain_ms``), the dense path and the bound (the experts
+    this run's tokens reach, their weight bytes at the HBM rate, or the
+    routed products at the bf16 rate); each kernel against its plain
+    version (``check_moe_kernels``); and route's ties at granite's
+    width."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_fused as mf
     from repro_torch.models import moe
     from repro_torch.models.layers import init_moe
     out = {}
@@ -3235,9 +3346,9 @@ def check_moe_ffn(torch) -> dict:
               for _ in range(2)]
         err, tol, used = 0.0, math.inf, []
         for x in xs:
-            got, _ = moe.moe_ffn_routed(x, p, cfg)
+            got, none = moe.moe_ffn_routed(x, p, cfg, aux=False)
             want, _ = moe.moe_ffn_dense_exact(x, p, cfg)
-            require(got.dtype == torch.bfloat16 and got.shape == (T, d)
+            require(none is None and got.dtype == torch.bfloat16 and got.shape == (T, d)
                     and bool(torch.isfinite(got).all()), f"moe {label}: bad output")
             e = float((got.float() - want.float()).abs().max())
             t = MOE_REL * float(want.float().abs().max())
@@ -3251,10 +3362,14 @@ def check_moe_ffn(torch) -> dict:
         b = bound(nbytes, flops, BF16_OPS_PER_S)
         out[label] = dict(
             arch=arch, T=T, max_abs_err=err, tol=tol, experts_used=used,
-            ms=graph_ms(torch, [lambda x=x: moe.moe_ffn_routed(x, p, cfg) for x in xs]),
+            ms=graph_ms(torch, [lambda x=x: moe.moe_ffn_routed(x, p, cfg, aux=False)
+                                for x in xs]),
+            chain_ms=graph_ms(torch, [lambda x=x: chain_ffn(torch, moe, mf, x, p, cfg)
+                                      for x in xs]),
             dense_ms=graph_ms(torch, [lambda x=x: moe.moe_ffn_dense_exact(x, p, cfg)
                                       for x in xs]),
-            bound_ms=b[0], bound_by=b[1], bytes=nbytes, flops=flops)
+            bound_ms=b[0], bound_by=b[1], bytes=nbytes, flops=flops,
+            kernels=check_moe_kernels(torch, moe, mf, p, cfg, xs[0]))
         if label == "granite_prefill":
             out[label]["tie_straddles"] = route_ties(torch, moe, cfg, T)
         log_card(f"moe_ffn {label}: {arch} d {d} ffe {ffe} E {E} top {k}, T {T}: "
@@ -4673,8 +4788,9 @@ def serve_blocks(torch, model, seed: int) -> dict:
 
 
 class TopK:
-    """``repro_torch.models.moe._top_k`` (every routing's choice: the
-    routed path's, EP's and the dense paths') wrapped: each call's router
+    """``repro_torch.models.moe._top_k`` and ``ops.moe_route`` (every
+    routing's choice: the routed path's, the routing kernel's, EP's and
+    the dense paths') wrapped: each call's router
     input (fp32), its own ids and the router are kept in call order. With
     ``ref`` (a list of such calls of the one-process run) the i-th call
     takes, for each of its tokens, the ids of the reference's token of
@@ -4686,27 +4802,40 @@ class TopK:
         self.torch, self.ref, self.calls, self.matched = torch, ref, [], []
 
     def __enter__(self):
+        from repro_torch.kernels import ops
         from repro_torch.models import moe
         self._moe, self._orig = moe, moe._top_k
+        self._ops, self._orig_kernel = ops, ops.moe_route
         torch = self.torch
+
+        def choose(x, router_w, ids, probs):
+            self.calls.append((x.float().cpu(), ids.cpu(), router_w.float().cpu()))
+            if self.ref is None:
+                return None
+            rx, rids, _ = self.ref[len(self.calls) - 1]
+            near = torch.cdist(x.float(), rx.to(x.device)).argmin(1).cpu()
+            self.matched.append((rx[near], rids[near], router_w.float().cpu()))
+            ids = rids[near].to(device=x.device, dtype=ids.dtype)
+            weights = probs.gather(1, ids.long())
+            return ids, weights / weights.sum(-1, keepdim=True).clamp(min=1e-9)
 
         def top_k(x, router_w, cfg, e_pad):
             probs, ids, weights = self._orig(x, router_w, cfg, e_pad)
-            self.calls.append((x.float().cpu(), ids.cpu(), router_w.float().cpu()))
-            if self.ref is not None:
-                rx, rids, _ = self.ref[len(self.calls) - 1]
-                near = torch.cdist(x.float(), rx.to(x.device)).argmin(1).cpu()
-                self.matched.append((rx[near], rids[near], router_w.float().cpu()))
-                ids = rids[near].to(device=x.device, dtype=ids.dtype)
-                weights = probs.gather(1, ids.long())
-                weights = weights / weights.sum(-1, keepdim=True).clamp(min=1e-9)
-            return probs, ids, weights
+            forced = choose(x, router_w, ids, probs)
+            return (probs, ids, weights) if forced is None else (probs, *forced)
 
-        moe._top_k = top_k
+        def kernel(x, router_w, k):     # the routing kernel (serving on the card)
+            ids, weights = self._orig_kernel(x, router_w, k)
+            probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+            forced = choose(x, router_w, ids, probs)
+            return (ids, weights) if forced is None else forced
+
+        moe._top_k, ops.moe_route = top_k, kernel
         return self
 
     def __exit__(self, *exc):
         self._moe._top_k = self._orig
+        self._ops.moe_route = self._orig_kernel
 
 
 def ds_reference(torch, arch, layers, enc_layers, batches) -> dict:

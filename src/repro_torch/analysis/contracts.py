@@ -55,7 +55,8 @@ from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_mod
 
 # The ``kernels/ops.py`` wrappers a trace keeps opaque.
 KERNEL_WRAPPERS = ("cache_topk", "hop_scores", "frontier_hop", "scatter_rows",
-                   "scatter_flush", "flash_attention", "decode_attention", "mamba_scan")
+                   "scatter_flush", "flash_attention", "decode_attention", "mamba_scan",
+                   "moe_route", "moe_dispatch", "swiglu_cast", "moe_combine")
 
 # Ops whose output shape depends on the data: on the card each needs the
 # host to learn a size, so none may sit inside a captured program.
@@ -268,6 +269,19 @@ def _meta_out(name: str, args, kwargs):
         x, A = a[0], a[2]
         return torch.empty_like(x), empty((x.shape[0], x.shape[2], A.shape[1]),
                                           torch.float32, x)
+    if name == "moe_route":
+        T, k = a[0].shape[0], a[2]
+        return empty((T, k), torch.int32, a[0]), empty((T, k), torch.float32, a[0])
+    if name == "moe_dispatch":
+        ids, x = a[0], a[1]
+        N = ids.numel()
+        return (empty((N,), torch.int32, x), empty((a[2],), torch.int32, x),
+                empty((N, x.shape[1]), x.dtype, x))
+    if name == "swiglu_cast":
+        return empty(tuple(a[0].shape), a[2], a[0])
+    if name == "moe_combine":
+        part, w = a[0], a[2]
+        return empty((w.shape[0], part.shape[1]), part.dtype, part)
     raise KeyError(name)
 
 

@@ -245,16 +245,18 @@ def totals_of(ops: list[OpRecord], aten_flops: float) -> Totals:
 
 
 def _moe_meta(rec: OpRecorder):
-    """``moe.moe_apply`` as an opaque call: (y like x, aux) on "meta", its
-    cost by ``moe_cost`` and its EP collectives by ``moe_collectives``."""
-    def call(x, p, cfg, dist=None, *, pspec=None, rows=...):
+    """``moe.moe_apply`` as an opaque call: (y like x, aux or None) on
+    "meta", its cost by ``moe_cost`` and its EP collectives by
+    ``moe_collectives``."""
+    def call(x, p, cfg, dist=None, *, pspec=None, rows=..., aux=True):
         params = dict(d_model=cfg.d_model, top_k=cfg.moe_top_k, n_experts=cfg.n_experts,
                       ffe_local=p["w_gate"].shape[-1],
                       collectives=moe_collectives(x, cfg, dist))
         leaves = [x] + [p[n] for n in ("router", "w_gate", "w_up", "w_down") if n in p]
 
         def run():
-            return torch.empty_like(x), torch.zeros((), dtype=torch.float32, device=x.device)
+            return torch.empty_like(x), (torch.zeros((), dtype=torch.float32, device=x.device)
+                                         if aux else None)
 
         return opaque_call(rec, "moe_ffn", run, leaves, params)
     return call

@@ -59,6 +59,10 @@ MAX_THREADS = {
     "combine_kernel": 256,              # DH threads, dh <= 256
     "mamba_scan_kernel": 128,           # kThreads
     "mamba_step_kernel": 128,           # kThreads
+    "moe_route_kernel": 256,            # kThreads (moe_fused.cu)
+    "moe_dispatch_kernel": 256,         # kThreads
+    "swiglu_cast_kernel": 256,          # kThreads
+    "moe_combine_kernel": 256,          # kThreads
 }
 
 # chip_smoke's kernel rows -> (source file, entry functions) in the report.

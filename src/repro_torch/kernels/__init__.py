@@ -1,5 +1,6 @@
 """Hand-written Hopper (sm_90a) CUDA kernels: the cache data plane, the
-model's attention and its Mamba layers' selective scan.
+model's attention, its Mamba layers' selective scan and its MoE FFN's
+routing glue.
 
 Each module holds a kernel's wrapper, its plain PyTorch version and a
 launch counter (``<wrapper>.launches``, and ``<wrapper>.recorded`` for
@@ -17,4 +18,6 @@ use. ``ops`` is the public surface; ``ref`` holds the oracles.
     decode_attention — one-token GQA decode against a ragged KV cache,
                        optionally windowed, rows split across blocks
     mamba_scan       — the Mamba1 selective scan, state carried over L
+    moe_fused        — the MoE FFN around its grouped products: routing,
+                       the stable dispatch by expert, SwiGLU, the combine
 """

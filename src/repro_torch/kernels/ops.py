@@ -2,7 +2,8 @@
 
 The counterpart of ``repro.kernels.ops`` for the cache data plane
 (lookup/insert), the model's attention (prefill/decode) and its Mamba
-layers' selective scan. Dispatch
+layers' selective scan, and beyond it the MoE FFN's routing, dispatch,
+SwiGLU and combine around its grouped products. Dispatch
 follows the tensors' device: a CPU tensor goes to the kernel module's
 plain PyTorch version, a CUDA tensor to the hand-written kernel, or the
 call raises. There is no fallback from one to the other. Kernels take any
@@ -30,6 +31,7 @@ from repro_torch.kernels import flat_topk as _ft
 from repro_torch.kernels import frontier_hop as _fh
 from repro_torch.kernels import gather_scores as _gs
 from repro_torch.kernels import mamba_scan as _ms
+from repro_torch.kernels import moe_fused as _mf
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import scatter_update as _su
 
@@ -38,7 +40,8 @@ from repro_torch.kernels import scatter_update as _su
 # and ``.recorded`` under a graph capture: see ``_build.count``).
 COUNTED = (_fh.frontier_hop, _gs.gather_scores, _gs.gather_scores_masked,
            _ft.flat_topk, _su.scatter_rows, _su.scatter_flush,
-           _fa.flash_attention, _da.decode_attention, _ms.mamba_scan)
+           _fa.flash_attention, _da.decode_attention, _ms.mamba_scan,
+           _mf.moe_route, _mf.moe_dispatch, _mf.swiglu_cast, _mf.moe_combine)
 
 
 def _i32(t: torch.Tensor) -> torch.Tensor:
@@ -219,3 +222,31 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tens
                              "takes no gradient; pass h_out=None when training")
         return _ms.MambaScanFn.apply(*args)
     return _ms.mamba_scan(*args, h_out=h_out)
+
+
+def moe_route(x: torch.Tensor, router_w: torch.Tensor, k: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routing: x (T, d), router (d, E) -> (ids (T, k) int32, weights
+    (T, k) fp32 renormalised over the k); ties go to the lower expert."""
+    return _mf.moe_route(x.contiguous(), router_w.contiguous(), k)
+
+
+def moe_dispatch(ids: torch.Tensor, x: torch.Tensor, n_experts: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The (token, choice) pairs of ids (T, k) stable-sorted by expert ->
+    (order (T·k,), offs (E,) int32 cumulative ends, rows (T·k, d) =
+    x[order // k])."""
+    return _mf.moe_dispatch(_i32(ids), x.contiguous(), n_experts)
+
+
+def swiglu_cast(g: torch.Tensor, u: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """silu(g) · u in fp32, rounded to ``dtype``."""
+    return _mf.swiglu_cast(g.contiguous(), u.contiguous(), dtype)
+
+
+def moe_combine(part: torch.Tensor, order: torch.Tensor, weights: torch.Tensor
+                ) -> torch.Tensor:
+    """part (T·k, d) in ``moe_dispatch``'s order -> y (T, d) in part's
+    dtype: each token's k rows weighted (weights (T, k) fp32) and summed in
+    fp32."""
+    return _mf.moe_combine(part.contiguous(), order.contiguous(), _f32(weights))

@@ -27,6 +27,15 @@ its maximum back), experts with no rows are empty groups, and the combine
 gathers each pair's output back to its token with unique indices, so its
 fp32 sums run in a fixed order (an atomic ``index_add_`` would not).
 
+In serving on the card (a CUDA tensor, nothing that needs a gradient, no
+aux asked for: ``sublayer_apply``'s prefill and decode) the steps around
+the three grouped products are four hand-written kernels
+(``kernels/moe_fused.py``): ``route`` takes ``moe_route``, then
+``moe_dispatch`` (the stable sort, the offsets and the gathered rows in
+one launch), ``swiglu_cast`` and ``moe_combine``; the Switch loss is not
+computed. Everywhere else (the CPU, "meta", training) the same steps are
+the PyTorch ops they replace (``moe_fused``'s plain versions).
+
 The grouped product dispatches by device, as the kernel wrappers do. The
 reference computes it outside any Pallas kernel (``lax.ragged_dot``), so
 the card takes a library product: ``torch._grouped_mm`` on bf16 operands
@@ -99,29 +108,27 @@ from __future__ import annotations
 
 import functools
 import math
+import types
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.context import P, axis_names
+from repro_torch.kernels import moe_fused as _mf
+from repro_torch.kernels import ops
+
+# The plain versions of ``moe_fused``'s steps under the ``ops`` wrappers'
+# names: ``moe_ffn_routed`` takes one or the other.
+_PLAIN = types.SimpleNamespace(moe_dispatch=_mf.dispatch_plain, swiglu_cast=_mf.swiglu_plain,
+                               moe_combine=_mf.combine_plain)
 
 
 def _top_k(x, router_w, cfg, e_pad: int):
-    """(probs (T, e_pad), ids (T, k), weights (T, k) renormalised). Ties
-    go to the lower expert, as ``lax.top_k`` breaks them: a stable
-    descending sort of the probabilities, first k taken (``torch.topk``
-    promises no order among equals). Padding experts score -1e30, as the
-    reference's."""
-    k = cfg.moe_top_k
-    logits = x.to(torch.float32) @ router_w.to(torch.float32)          # (T, E)
-    if e_pad > logits.shape[-1]:
-        logits = F.pad(logits, (0, e_pad - logits.shape[-1]), value=-1e30)
-    probs = torch.softmax(logits, dim=-1)
-    weights, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
-    weights, ids = weights[:, :k], ids[:, :k]
-    weights = weights / weights.sum(dim=-1, keepdim=True).clamp(min=1e-9)
-    return probs, ids, weights
+    """(probs (T, e_pad), ids (T, k), weights (T, k) renormalised):
+    ``moe_fused.route_plain``, ties to the lower expert, padding experts
+    at -1e30."""
+    return _mf.route_plain(x, router_w, cfg.moe_top_k, e_pad)
 
 
 def _expert_counts(ids: torch.Tensor, e_pad: int) -> torch.Tensor:
@@ -129,24 +136,33 @@ def _expert_counts(ids: torch.Tensor, e_pad: int) -> torch.Tensor:
     return counts.scatter_add_(0, ids.reshape(-1), torch.ones(ids.numel(), device=ids.device))
 
 
-def route(x: torch.Tensor, router_w: torch.Tensor, cfg
-          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Top-k routing (``_top_k``). x (T, d) -> ids (T, k) int32, weights
-    (T, k) fp32 (renormalised over the k), aux load-balancing loss
-    (scalar, Switch: E · Σ_e f_e · P_e; serving discards it)."""
-    probs, ids, weights = _top_k(x, router_w, cfg, router_w.shape[-1])
+def _switch_aux(probs: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The Switch load-balancing loss E · Σ_e f_e · P_e of one routing."""
     E = probs.shape[-1]
     f = _expert_counts(ids, E)
     f = f / f.sum().clamp(min=1.0)
-    aux = E * torch.sum(f * probs.mean(dim=0))
-    return ids.to(torch.int32), weights, aux
+    return E * torch.sum(f * probs.mean(dim=0))
+
+
+def route(x: torch.Tensor, router_w: torch.Tensor, cfg
+          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """Top-k routing. x (T, d) -> ids (T, k) int32, weights (T, k) fp32
+    (renormalised over the k), aux load-balancing loss (scalar, Switch:
+    ``_switch_aux``). On the card outside autograd the ``moe_route``
+    kernel routes and aux is None (serving discards it; a caller that
+    wants it computes it, ``moe_ffn_routed``); otherwise ``_top_k``."""
+    if x.device.type == "cuda" and not ops._differentiable(x, router_w):
+        ids, weights = ops.moe_route(x, router_w, cfg.moe_top_k)
+        return ids, weights, None
+    probs, ids, weights = _top_k(x, router_w, cfg, router_w.shape[-1])
+    return ids.to(torch.int32), weights, _switch_aux(probs, ids)
 
 
 def moe_ffn_dense_exact(x: torch.Tensor, p: dict, cfg
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Every expert on every token in fp32, weighted by the top-k combine.
-    x (T, d) -> (y (T, d) in x's dtype, aux). One expert at a time, so
-    only one expert's weights are held in fp32 at once."""
+    x (T, d) -> (y (T, d) in x's dtype, ``route``'s aux). One expert at a
+    time, so only one expert's weights are held in fp32 at once."""
     ids, weights, aux = route(x, p["router"], cfg)
     return _dense_combine(x, ids, weights, p, cfg), aux
 
@@ -258,29 +274,29 @@ def grouped_mm_has_backward(device: str) -> tuple[bool, str]:
     return True, ""
 
 
-def moe_ffn_routed(x: torch.Tensor, p: dict, cfg
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn_routed(x: torch.Tensor, p: dict, cfg, *, aux: bool = True
+                   ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Sort-based routed MoE (the reference's ``_moe_local`` at one data
-    shard). x (T, d) -> (y (T, d) in x's dtype, aux)."""
-    T, d = x.shape
-    k, E = cfg.moe_top_k, cfg.n_experts
-    ids, weights, aux = route(x, p["router"], cfg)
-    flat_ids = ids.reshape(-1)                                  # (N = T·k,)
-    sorted_ids, order = torch.sort(flat_ids, stable=True)
-    tok = torch.div(order, k, rounding_mode="floor")            # pair -> token
-    # Cumulative row ends per expert, on the device; empty experts repeat.
-    bounds = torch.arange(E, dtype=sorted_ids.dtype, device=x.device)
-    offs = torch.searchsorted(sorted_ids, bounds, right=True).to(torch.int32)
-    rows = x.index_select(0, tok)                               # (N, d)
+    shard). x (T, d) -> (y (T, d) in x's dtype, aux; None without
+    ``aux``). The (token, choice) pairs are stable-sorted by expert, each
+    expert's rows run through the grouped products, and the down rows go
+    back to (token, choice) order and are summed over the k choices in
+    fp32. On the card outside autograd and without ``aux`` (serving) the
+    steps around the products are ``moe_fused``'s kernels; otherwise
+    (the CPU, "meta", training) their plain versions."""
+    E = cfg.n_experts
+    ids, weights, loss = route(x, p["router"], cfg)
+    if aux and loss is None:        # the routing kernel ran (on the card, no autograd)
+        loss = _switch_aux(_top_k(x, p["router"], cfg, E)[0], ids)
+    fused = (x.device.type == "cuda" and not aux
+             and not ops._differentiable(x, *p.values()))
+    step = ops if fused else _PLAIN
+    order, offs, rows = step.moe_dispatch(ids, x, E)           # rows (N = T·k, d)
     g = grouped_mm(rows, p["w_gate"], offs)
     u = grouped_mm(rows, p["w_up"], offs)
-    hidden = (F.silu(g.to(torch.float32)) * u.to(torch.float32)).to(x.dtype)
+    hidden = step.swiglu_cast(g, u, x.dtype)
     part = grouped_mm(hidden, p["w_down"], offs).to(x.dtype)   # (N, d)
-    # Back to (token, choice) order, then the weighted sum over the k
-    # choices in fp32.
-    pairs = torch.empty_like(part).index_copy_(0, order, part)
-    y = (pairs.view(T, k, d).to(torch.float32) * weights[..., None]).sum(dim=1)
-    return y.to(x.dtype), aux
+    return step.moe_combine(part, order, weights), loss if aux else None
 
 
 def padded_experts(n_experts: int, n_data: int) -> int:
@@ -464,8 +480,8 @@ def _moe_dense_sharded(x, p, ps, cfg, dist, rows):
     stored experts run on all of them in fp32 (their ``model`` slice of
     the FFN width: silu(g)·u is per column, the down product a partial
     sum), the partials summed over the experts' storage axes in rank
-    order, this rank's rows taken back. Returns (y, the batch line's aux,
-    which serving discards)."""
+    order, this rank's rows taken back. Returns (y, the batch line's aux
+    as ``route`` gives it, which serving discards)."""
     router = coll.fetch(p["router"], ps["router"], P(), dist)
     xa = coll.fetch(x, P(rows), P(), dist)
     ids, weights, aux = route(xa, router, cfg)
@@ -488,10 +504,11 @@ def _moe_dense_sharded(x, p, ps, cfg, dist, rows):
 
 
 def moe_apply(x: torch.Tensor, p: dict, cfg, dist=None, *, pspec: dict | None = None,
-              rows=...) -> tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) or (T, d) -> (y of x's shape, aux). Without a mesh the
-    routed path. Under a mesh (``p`` this rank's blocks, ``pspec`` their
-    specs, x this rank's rows) the reference's dispatch on the global
+              rows=..., aux: bool = True) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """x (B, S, d) or (T, d) -> (y of x's shape, aux; None without
+    ``aux``, which serving passes). Without a mesh the routed path, which
+    then computes no aux. Under a mesh (``p`` this rank's blocks,
+    ``pspec`` their specs, x this rank's rows) the reference's dispatch on the global
     token count: EP, token-parallel for small experts (``d_ff_expert <
     128 · n_model``), where there is more than one data shard and the
     global tokens split over the token shards; every expert on every token
@@ -503,8 +520,8 @@ def moe_apply(x: torch.Tensor, p: dict, cfg, dist=None, *, pspec: dict | None = 
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     if dist is None or dist.mesh is None:
-        y, aux = moe_ffn_routed(x2, p, cfg)
-        return y.reshape(shape), aux
+        y, loss = moe_ffn_routed(x2, p, cfg, aux=aux)
+        return y.reshape(shape), loss
     batch = dist.batch_axes
     serving = rows is not ...
     rows = rows if serving else batch
@@ -514,10 +531,10 @@ def moe_apply(x: torch.Tensor, p: dict, cfg, dist=None, *, pspec: dict | None = 
     if dist.n_data > 1 and t_global % tok_shards == 0:
         # EP on this rank's block of the tokens over the batch axes
         xs = coll.fetch(x2, P(rows), P(batch), dist)
-        y, aux = moe_ffn_ep(xs, p, cfg, dist, token_parallel=tp, pspec=pspec)
+        y, loss = moe_ffn_ep(xs, p, cfg, dist, token_parallel=tp, pspec=pspec)
         y = coll.fetch(y, P(batch), P(rows), dist)
     elif serving:
-        y, aux = _moe_dense_sharded(x2, p, pspec, cfg, dist, rows)
+        y, loss = _moe_dense_sharded(x2, p, pspec, cfg, dist, rows)
     else:
-        y, aux = _moe_dense_dist(x2, p, pspec, cfg, dist)
-    return y.reshape(shape), aux
+        y, loss = _moe_dense_dist(x2, p, pspec, cfg, dist)
+    return y.reshape(shape), loss if aux else None

@@ -371,7 +371,8 @@ def sublayer_apply(x, sp, cfg, spec: SubLayerSpec, dist=None, *, mode: str, posi
                    enc_kv=None, pspec=None, cspecs=None):
     """One layer: its mixer, its cross-attention if it has one, then its
     MLP if it has one -> (x, aux), aux its MoE load-balancing loss (fp32,
-    0 without experts). ``cache`` is the whole stacked cache and ``slot``
+    0 without experts) in train mode and None in prefill and decode, which
+    compute none. ``cache`` is the whole stacked cache and ``slot``
     the layer's index into its kind's tensors (``cache_slots``; an encdec
     decoder layer's index into ``ck``/``cv`` too, every layer of it being
     attention). In train mode an encdec layer's cross K/V come as
@@ -387,7 +388,8 @@ def sublayer_apply(x, sp, cfg, spec: SubLayerSpec, dist=None, *, mode: str, posi
     if meshed and (pspec is None or (mode != "train" and cspecs is None)):
         raise ValueError(f"{cfg.name}: a layer under a mesh needs its specs (pspec) "
                          f"and, in {mode} mode, the cache's (cspecs)")
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    train = mode == "train"
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) if train else None
     if spec.kind == "attn":
         ck = cv = None
         if cache is not None:
@@ -417,7 +419,7 @@ def sublayer_apply(x, sp, cfg, spec: SubLayerSpec, dist=None, *, mode: str, posi
         h = rms_norm(x, sp["ln_mlp"], cfg.norm_eps)
         rows = ... if cspecs is None else next(iter(cspecs.values()))[1]
         y, aux = moe_mod.moe_apply(h, sp["mlp"], cfg, dist, pspec=pspec and pspec["mlp"],
-                                   rows=rows)
+                                   rows=rows, aux=train)
         x = x + y.to(x.dtype)
     return x, aux
 
