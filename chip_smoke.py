@@ -2561,17 +2561,22 @@ class GenerateTimer:
         return [s.elapsed_time(e) for s, e, b in self.events[kind] if B in (None, b)]
 
 
-def eager_tokens(torch, model, params, tokens, new: int, extra=None):
+def eager_tokens(torch, model, params, tokens, new: int, extra=None, reached=None):
     """Greedy generation of ``new`` tokens as the plain eager loop over
     ``Model.prefill`` and ``Model.decode_step`` (the yardstick of the
     captured programs), every step's logits required finite; ``extra``
-    the family's input beside the tokens (``family_inputs``)."""
+    the family's input beside the tokens (``family_inputs``); ``reached``
+    a (2,) int32 device tensor the MoE layers' expert counters add to (the
+    prefill's, then the decode steps')."""
     V = model.cfg.vocab_size
     extra = extra or {}
     max_len = prefix_len(extra) + tokens.shape[1] + new
+    pre, dec = ({"reached": reached[:1]}, {"reached": reached[1:]}) if reached is not None \
+        else ({}, {})
     with torch.inference_mode():
         logits, cache, kv_len = model.prefill(
-            params, {"tokens": torch.from_numpy(tokens).to(model.device), **extra}, max_len)
+            params, {"tokens": torch.from_numpy(tokens).to(model.device), **extra}, max_len,
+            **pre)
         out = []
         for step in range(new):
             require(bool(torch.isfinite(logits[:, :V]).all()),
@@ -2579,7 +2584,7 @@ def eager_tokens(torch, model, params, tokens, new: int, extra=None):
             tok = logits[:, :V].argmax(-1).to(torch.int32)
             out.append(tok)
             if step < new - 1:
-                logits, cache, kv_len = model.decode_step(params, cache, tok, kv_len)
+                logits, cache, kv_len = model.decode_step(params, cache, tok, kv_len, **dec)
         return torch.stack(out, dim=1).cpu().numpy()
 
 
@@ -2714,7 +2719,7 @@ def tree_sum(tree, of) -> int:
 
 
 def decode_step_bound(params, cfg, batch: float, *, prompt_len: int,
-                      new_tokens: int) -> dict:
+                      new_tokens: int, hit: float | None = None) -> dict:
     """The least time of one decode step at ``batch`` sequences: the bytes
     it must move (every layer weight, the bf16 head, the final norm, the
     batch's embedding rows, and each layer's cached state: the live K/V
@@ -2723,8 +2728,8 @@ def decode_step_bound(params, cfg, batch: float, *, prompt_len: int,
     and written) at the HBM rate, or its products at the bf16 tensor-core
     rate, whichever is larger. An MoE layer reads only the experts its
     batch routes to: under uniform routing E·(1 − (1 − k/E)^batch) of E
-    (33.3 of granite-moe's 40 at batch 8), and does k experts' products a
-    token, not E. The port's fp32 head copy is a cost of its design,
+    (33.3 of granite-moe's 40 at batch 8), or ``hit`` where the experts
+    reached were counted, and does k experts' products a token, not E. The port's fp32 head copy is a cost of its design,
     reported apart. An encdec decoder (whisper) also reads each layer's
     cross K/V of the encoder output, and never its cross ``wk`` / ``wv``
     (prefill made the K/V with them); its encoder is not read at all."""
@@ -2740,7 +2745,9 @@ def decode_step_bound(params, cfg, batch: float, *, prompt_len: int,
     def dense(of):
         return tree_sum(read, lambda t: 0 if id(t) in routed | unread else of(t))
 
-    hit = expected_experts(cfg.n_experts, cfg.moe_top_k, batch) if experts else 0.0
+    uniform = hit is None
+    if uniform:
+        hit = expected_experts(cfg.n_experts, cfg.moe_top_k, batch) if experts else 0.0
     exp_bytes = tree_sum(experts, lambda t: t.nbytes) * (hit / max(cfg.n_experts, 1))
     exp_flops = (2 * batch * cfg.moe_top_k / max(cfg.n_experts, 1)
                  * tree_sum(experts, lambda t: t.numel()))
@@ -2763,9 +2770,10 @@ def decode_step_bound(params, cfg, batch: float, *, prompt_len: int,
     flops = 2 * batch * dense(lambda t: t.numel()) + exp_flops
     t, by = bound(nbytes, flops, BF16_OPS_PER_S)
     extra = head.numel() * (4 - esz)
-    note = (f", of each MoE layer's {cfg.n_experts} experts the {hit:.1f} that "
-            f"uniform top-{cfg.moe_top_k} routing reaches at the mean batch, not all"
-            if experts else "")
+    reach = (f"uniform top-{cfg.moe_top_k} routing reaches at the mean batch" if uniform
+             else "the steps reached, counted")
+    note = (f", of each MoE layer's {cfg.n_experts} experts the {hit:.1f} that {reach}, "
+            f"not all" if experts else "")
     return dict(decode_bound_ms=t, decode_bound_by=by, decode_bytes=nbytes,
                 decode_state=state, decode_experts=note, decode_experts_hit=hit,
                 decode_cross_bytes=cross, fp32_head_extra_ms=extra / HBM_BYTES_PER_S * 1e3)
@@ -2973,6 +2981,11 @@ def check_model(torch, arch: str) -> dict:
 
 HYBRID_ARCH = "jamba-v0.1-52b"
 HYBRID_LAYERS = 8              # one period: Mamba x 4, attention, Mamba x 3
+# AI21-Jamba2-Mini, the benchmark's hybrid cell (configs/ai21_jamba2_mini.py:
+# jamba's shapes, its variant's inner norms and routing without
+# renormalisation, no RoPE), cut as the cell cuts it: two whole periods.
+JAMBA2_ARCH = "ai21-jamba2-mini"
+JAMBA2_LAYERS = 16
 
 
 def check_hybrid(torch, counters) -> dict:
@@ -3029,6 +3042,99 @@ def check_hybrid(torch, counters) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return dict(decode_vs_prefill=dp["err"], launches=counts, peak_gib=peak)
+
+
+def check_hybrid_serve(torch) -> dict:
+    """AI21-Jamba2-Mini as the benchmark's cell runs it: the port's config
+    cut to JAMBA2_LAYERS layers, every width as published, seeded bf16
+    weights drawn on the card, through the engine's captured generation
+    (``serving.engine.generate``) at B 8 and 3, prompt 64, 16 new tokens.
+    Every prefill graph must record one mamba_scan per Mamba layer, one
+    flash_attention per attention layer and one of each MoE kernel per
+    MoE layer, every decode graph the same with decode_attention, and a
+    profiled replay of each must run exactly what it recorded; the graph
+    tokens and the expert counters must equal the eager loop's. The
+    replays at B 8 are timed (CUDA events) beside the decode step's bound
+    at the experts the steps reached."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.graphs import CapturedProgram
+    from repro_torch.models import mamba as mam
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import generate
+    cfg = dataclasses.replace(get_config(JAMBA2_ARCH), n_layers=JAMBA2_LAYERS)
+    kinds, mlps = cfg.layer_kinds(), cfg.mlp_kinds()
+    n_mamba, n_attn, n_moe = kinds.count("mamba"), kinds.count("attn"), mlps.count("moe")
+    P, NEW, V, E = 64, 16, cfg.vocab_size, cfg.n_experts
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    params = model.init_params(0)
+    n_params = tree_sum(params, lambda t: t.numel())
+    normed = sum(all(n in sp["mix"] for n in mam.INNER_NORMS)
+                 for kind, sp in zip(kinds, params["layers"]) if kind == "mamba")
+    require(normed == n_mamba, f"serve {JAMBA2_ARCH}: {normed} of {n_mamba} Mamba layers "
+            f"hold the inner norms")
+    programs = CapturedProgram(model.device)
+    rng = np.random.default_rng(13)
+    counted, last = {8: [], 3: []}, {}
+    with GenerateTimer(torch) as timer:
+        for B, runs in ((8, 6), (3, 2)):
+            for _ in range(runs):
+                toks = rng.integers(2, V, (B, P)).astype(np.int32)
+                state = generate(programs, model, params, {"tokens": toks}, P + NEW, NEW)
+                host = state["host"].cpu().numpy()
+                n = state["out"].numel()
+                counted[B].append((int(host[n]), int(host[n + 1])))
+                last[B] = (toks, host[:n].reshape(B, NEW))
+        torch.cuda.synchronize()
+    for key in programs.keys():
+        require(key in timer.traced, f"serve {JAMBA2_ARCH}: graph {key} never replayed")
+        traced, recorded = timer.traced[key]
+        require(traced == recorded, f"serve {JAMBA2_ARCH}: a replay of graph {key} ran "
+                f"{traced} launches of the port's kernels, its capture recorded {recorded}")
+        got = {fn.__name__: k for fn, k in programs.recorded(key).items()}
+        attn = "flash_attention" if key[0] == "prefill" else "decode_attention"
+        want = {"mamba_scan": n_mamba, attn: n_attn, **dict.fromkeys(MOE_KERNELS, n_moe)}
+        require(got == want, f"serve {JAMBA2_ARCH}: graph {key} recorded {got}, not {want}")
+    for B, (toks, got) in last.items():
+        reached = torch.zeros(2, dtype=torch.int32, device="cuda")
+        want = eager_tokens(torch, model, params, toks, NEW, reached=reached)
+        require(np.array_equal(got, want), f"serve {JAMBA2_ARCH}: B={B} graph tokens "
+                f"{got.tolist()} differ from the eager loop's {want.tolist()}")
+        require(tuple(reached.tolist()) == counted[B][-1], f"serve {JAMBA2_ARCH}: B={B} "
+                f"graph counted experts {counted[B][-1]}, the eager loop {reached.tolist()}")
+    pre = [c for c, _ in counted[8]]
+    dec = [c for _, c in counted[8]]
+    per_layer = statistics.mean(dec) / ((NEW - 1) * n_moe)
+    require(all(2 * n_moe <= c <= E * n_moe for c in pre)
+            and all(2 * n_moe * (NEW - 1) <= c <= E * n_moe * (NEW - 1) for c in dec),
+            f"serve {JAMBA2_ARCH}: expert counts at B 8 {counted[8]} outside their bounds")
+    step = decode_step_bound(params, cfg, 8, prompt_len=P, new_tokens=NEW, hit=per_layer)
+    pre_ms, dec_ms = timer.ms("prefill", 8), timer.ms("decode", 8)
+    numbers = dict(
+        layers=JAMBA2_LAYERS, params=n_params, prefill_ms_p50=statistics.median(pre_ms),
+        decode_ms_p50=statistics.median(dec_ms), decode_ms_p90=float(np.percentile(dec_ms, 90)),
+        timed=(len(pre_ms), len(dec_ms)), experts_prefill=pre, experts_decode=dec,
+        experts_per_moe_layer_decode=per_layer,
+        uniform_expectation=expected_experts(E, cfg.moe_top_k, 8),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30, **step)
+    log_card(f"serve {JAMBA2_ARCH}: {JAMBA2_LAYERS} layers {kinds} (MoE on {n_moe}), "
+             f"{n_params / 1e9:.2f} B parameters; graphs {sorted(programs.keys())} each "
+             f"recorded, and ran when profiled, mamba_scan {n_mamba}, flash / decode "
+             f"{n_attn}, each MoE kernel {n_moe}; graph tokens and expert counters equal "
+             f"the eager loop's at B 8 and 3; {numbers}; "
+             f"{time.perf_counter() - t0:.1f} s")
+    for name, text in timer.profiles.items():
+        log(f"serve {JAMBA2_ARCH}: profile of one {name} replay: {text}")
+    del model, params, programs, timer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return numbers
 
 
 # ---------------------------------------------------------------- phase 9
@@ -3189,7 +3295,9 @@ MOE_REL = 2.0 ** -6           # routed (bf16 products) against dense exact (fp32
                                # rounds g, u, the hidden and each expert's output)
 MOE_SHAPES = (("granite_prefill", "granite-moe-3b-a800m", 512),
               ("granite_decode", "granite-moe-3b-a800m", 8),
-              ("jamba_prefill", HYBRID_ARCH, 128))
+              ("jamba_prefill", HYBRID_ARCH, 128),
+              ("jamba2_decode", JAMBA2_ARCH, 8),
+              ("jamba2_prefill", JAMBA2_ARCH, 512))
 TIE_PAIRS = ((1, 38), (3, 4), (0, 39))   # duplicated router columns (granite's 40)
 
 
@@ -3258,24 +3366,32 @@ def check_moe_kernels(torch, moe, mf, p, cfg, x) -> dict:
     """Each of ``moe_fused``'s kernels against its plain version on the
     card, on one input: routing (ids equal but at near ties, weights
     within 1e-5 where the ids agree), dispatch (order, offsets and rows
-    bit for bit, on the kernel's ids), SwiGLU and combine (within one bf16
-    step), and each kernel's device time beside the plain version's."""
+    bit for bit, on the kernel's ids, and the count it adds the distinct
+    ids), SwiGLU and combine (within one bf16
+    step), and each kernel's device time beside the plain version's; the
+    routing in the model's own mode (renormalised or not, its variant's)."""
     from repro_torch.kernels import ops
+    from repro_torch.models.variants import variant_of
     k, E = cfg.moe_top_k, cfg.n_experts
+    renorm = variant_of(cfg).moe_renormalize
     before = {f.__name__: (f.launches, f.recorded) for f in
               (mf.moe_route, mf.moe_dispatch, mf.swiglu_cast, mf.moe_combine)}
-    _, plain_ids, plain_w = mf.route_plain(x, p["router"], k)
-    ids, weights = ops.moe_route(x, p["router"], k)
+    _, plain_ids, plain_w = mf.route_plain(x, p["router"], k, renormalize=renorm)
+    ids, weights = ops.moe_route(x, p["router"], k, renormalize=renorm)
     flips = route_flips(torch, x, p["router"], plain_ids.cpu(), ids.cpu(),
                         f"moe_route {cfg.name} T {x.shape[0]}")
     same = (plain_ids.to(torch.int32) == ids).all(dim=1)
     werr = float((weights - plain_w)[same].abs().max()) if bool(same.any()) else 0.0
     require(werr <= 1e-5, f"moe_route: weights {werr} from the plain version's")
-    order, offs, rows = ops.moe_dispatch(ids, x, E)
+    count = torch.full((1,), 5, dtype=torch.int32, device=x.device)
+    order, offs, rows = ops.moe_dispatch(ids, x, E, count)
     p_order, p_offs, p_rows = mf.dispatch_plain(ids, x, E)
     require(torch.equal(order.long(), p_order) and torch.equal(offs, p_offs)
             and torch.equal(rows, p_rows), "moe_dispatch: order, offs or rows differ "
             "from the stable sort's")
+    reached = int(count) - 5
+    require(reached == ids.unique().numel(), f"moe_dispatch: the counter gained {reached}, "
+            f"the ids hold {ids.unique().numel()} experts")
     g = moe.grouped_mm(rows, p["w_gate"], offs)
     u = moe.grouped_mm(rows, p["w_up"], offs)
     hidden = ops.swiglu_cast(g, u, x.dtype)
@@ -3288,16 +3404,19 @@ def check_moe_kernels(torch, moe, mf, p, cfg, x) -> dict:
             f"{float((y.float() - mf.combine_plain(part, p_order, weights).float()).abs().max())}"
             f" of max |y| {float(y.float().abs().max())}")
     times = dict(
-        route_ms=graph_ms(torch, [lambda: ops.moe_route(x, p["router"], k)]),
-        route_plain_ms=graph_ms(torch, [lambda: mf.route_plain(x, p["router"], k)]),
+        route_ms=graph_ms(torch, [lambda: ops.moe_route(x, p["router"], k,
+                                                         renormalize=renorm)]),
+        route_plain_ms=graph_ms(torch, [lambda: mf.route_plain(x, p["router"], k,
+                                                                 renormalize=renorm)]),
         dispatch_ms=graph_ms(torch, [lambda: ops.moe_dispatch(ids, x, E)]),
         dispatch_plain_ms=graph_ms(torch, [lambda: mf.dispatch_plain(ids, x, E)]),
         swiglu_ms=graph_ms(torch, [lambda: ops.swiglu_cast(g, u, x.dtype)]),
         swiglu_plain_ms=graph_ms(torch, [lambda: mf.swiglu_plain(g, u, x.dtype)]),
         combine_ms=graph_ms(torch, [lambda: ops.moe_combine(part, order, weights)]),
         combine_plain_ms=graph_ms(torch, [lambda: mf.combine_plain(part, p_order, weights)]))
-    return dict(route_flips=flips, route_weight_err=werr, swiglu_ulps=s_ulps,
-                combine_ulps=c_ulps, **times,
+    return dict(renormalize=renorm, route_flips=flips, route_weight_err=werr,
+                swiglu_ulps=s_ulps,
+                combine_ulps=c_ulps, experts_reached=reached, **times,
                 launches={n: (f.launches - before[n][0], f.recorded - before[n][1])
                           for n, f in ((f.__name__, f) for f in (
                               mf.moe_route, mf.moe_dispatch, mf.swiglu_cast,
@@ -3307,9 +3426,11 @@ def check_moe_kernels(torch, moe, mf, p, cfg, x) -> dict:
 def chain_ffn(torch, moe, mf, x, p, cfg):
     """The routed FFN as PyTorch ops on the card, the Switch loss included:
     the path serving took before the kernels (``moe_fused``'s plain
-    versions), timed beside it."""
+    versions, in the model's routing mode), timed beside it."""
+    from repro_torch.models.variants import variant_of
     k, E = cfg.moe_top_k, cfg.n_experts
-    probs, ids, weights = mf.route_plain(x, p["router"], k)
+    probs, ids, weights = mf.route_plain(x, p["router"], k,
+                                         renormalize=variant_of(cfg).moe_renormalize)
     aux = moe._switch_aux(probs, ids)
     order, offs, rows = mf.dispatch_plain(ids.to(torch.int32), x, E)
     g = moe.grouped_mm(rows, p["w_gate"], offs)
@@ -3324,7 +3445,9 @@ def check_moe_ffn(torch) -> dict:
     aux: ``moe_fused``'s kernels around ``torch._grouped_mm`` on the card)
     against the dense exact path (every expert in fp32) on the same card,
     seeded bf16 inputs, at granite-moe's layer (T 512: a prefill of 8 x
-    64; T 8: a decode step at batch 8) and jamba's (T 128: 2 x 64), each
+    64; T 8: a decode step at batch 8), jamba's (T 128: 2 x 64) and
+    AI21-Jamba2-Mini's (jamba's widths, top-2 weights not renormalised:
+    T 8 and 512, the benchmark cell's decode step and prefill), each
     timed (CUDA events around graph replays) beside the op chain it
     replaced (``chain_ms``), the dense path and the bound (the experts
     this run's tokens reach, their weight bytes at the HBM rate, or the
@@ -3376,6 +3499,53 @@ def check_moe_ffn(torch) -> dict:
                  f"{out[label]}")
         del p, xs
         torch.cuda.empty_cache()
+    return out
+
+
+# moe_route's two modes at Jamba's routing (d 4,096, E 16, top 2): a decode
+# step at batch 8 and a prefill of 8 x 64.
+ROUTE_MODE_T = (8, 512)
+
+
+def check_route_modes(torch) -> dict:
+    """``moe_route`` without renormalisation (Jamba's router,
+    ``models/variants.py``) against its plain version on the card at
+    Jamba's routing: ids equal but at near ties (``route_flips``), the
+    weights within 1e-5 where they agree, the renormalising mode's ids
+    the same and its weights these divided by their sum; each mode and
+    the plain version timed (CUDA events around graph replays)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_fused as mf
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import normal
+    cfg = get_config(HYBRID_ARCH)
+    d, E, k = cfg.d_model, cfg.n_experts, cfg.moe_top_k
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(37)
+    router = normal(gen, (d, E), torch.float32, d ** -0.5, "cuda")
+    out = {}
+    for T in ROUTE_MODE_T:
+        x = torch.randn((T, d), generator=gen, device="cuda").to(torch.bfloat16)
+        _, p_ids, p_w = mf.route_plain(x, router, k, renormalize=False)
+        ids, w = ops.moe_route(x, router, k, renormalize=False)
+        flips = route_flips(torch, x, router, p_ids.cpu(), ids.cpu(),
+                            f"moe_route without renormalisation T {T}")
+        same = (p_ids.to(torch.int32) == ids).all(dim=1)
+        werr = float((w - p_w)[same].abs().max()) if bool(same.any()) else 0.0
+        require(werr <= 1e-5, f"moe_route without renormalisation: weights {werr} from "
+                f"the plain version's")
+        r_ids, r_w = ops.moe_route(x, router, k)
+        rerr = float((r_w - w / w.sum(-1, keepdim=True)).abs().max())
+        require(torch.equal(r_ids, ids) and rerr <= 1e-6,
+                f"moe_route: the renormalising mode chose other experts or weights "
+                f"{rerr} from the other mode's over their sum")
+        out[T] = dict(flips=flips, weight_err=werr, renorm_err=rerr,
+                      weight_sum_max=float(w.sum(-1).max()),
+                      ms=graph_ms(torch, [lambda: ops.moe_route(x, router, k, renormalize=False)]),
+                      renorm_ms=graph_ms(torch, [lambda: ops.moe_route(x, router, k)]),
+                      plain_ms=graph_ms(torch, [lambda: mf.route_plain(x, router, k,
+                                                                       renormalize=False)]))
+        log_card(f"moe_route jamba2 T {T}: d {d} E {E} top {k}, no renormalisation: {out[T]}")
     return out
 
 
@@ -4824,8 +4994,8 @@ class TopK:
             forced = choose(x, router_w, ids, probs)
             return (probs, ids, weights) if forced is None else (probs, *forced)
 
-        def kernel(x, router_w, k):     # the routing kernel (serving on the card)
-            ids, weights = self._orig_kernel(x, router_w, k)
+        def kernel(x, router_w, k, renormalize=True):   # the routing kernel (serving on the card)
+            ids, weights = self._orig_kernel(x, router_w, k, renormalize)
             probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
             forced = choose(x, router_w, ids, probs)
             return (ids, weights) if forced is None else forced
@@ -5429,6 +5599,7 @@ def main(argv: list[str]) -> int:
         if "serve" in phases:
             t0 = time.perf_counter()
             check_moe_ffn(torch)
+            check_route_modes(torch)
             served = {}
             for arch in SERVE_ARCHS:             # one model on the card at a time
                 served[arch] = run_serve(torch, counters, arch, n_requests=256)
@@ -5443,6 +5614,7 @@ def main(argv: list[str]) -> int:
             for arch in SERVE_ARCHS:
                 check_model(torch, arch)
             check_hybrid(torch, counters)
+            check_hybrid_serve(torch)
             log(f"phase serve: {time.perf_counter() - t0:.1f} s")
         if "encdec_vlm" in phases:
             t0 = time.perf_counter()

@@ -247,8 +247,8 @@ def totals_of(ops: list[OpRecord], aten_flops: float) -> Totals:
 def _moe_meta(rec: OpRecorder):
     """``moe.moe_apply`` as an opaque call: (y like x, aux or None) on
     "meta", its cost by ``moe_cost`` and its EP collectives by
-    ``moe_collectives``."""
-    def call(x, p, cfg, dist=None, *, pspec=None, rows=..., aux=True):
+    ``moe_collectives``; an expert counter (``count``) is left as it is."""
+    def call(x, p, cfg, dist=None, *, pspec=None, rows=..., aux=True, count=None):
         params = dict(d_model=cfg.d_model, top_k=cfg.moe_top_k, n_experts=cfg.n_experts,
                       ffe_local=p["w_gate"].shape[-1],
                       collectives=moe_collectives(x, cfg, dist))

@@ -38,6 +38,8 @@ ALIASES = {
     "jamba-v0.1-52b": "jamba_v0_1_52b",
     "llava-next-mistral-7b": "llava_next_mistral_7b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    # a config of the port alone (no reference counterpart, not in ARCH_IDS)
+    "ai21-jamba2-mini": "ai21_jamba2_mini",
 }
 
 

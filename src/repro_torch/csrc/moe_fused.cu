@@ -27,7 +27,8 @@
 //   each expert's place among its token's (probability descending, expert
 //   ascending: ties go to the lower expert, as a stable descending sort
 //   has them) with a thread per (token, expert), the first k taken and
-//   their weights renormalised. Every step is a few hundred cycles deep:
+//   their weights renormalised (renorm 1), or left as the k probabilities
+//   (renorm 0: Jamba's router). Every step is a few hundred cycles deep:
 //   at a decode step the kernel is latency, not bytes or operations.
 // moe_dispatch: a stable counting sort. Each block counts every pair's
 //   expert (shared-memory counters, one add per expert per warp), scans the
@@ -35,6 +36,9 @@
 //   equal experts with __match_any_sync, writes their sorted positions
 //   (order) and copies their rows of x. The counting is repeated in every
 //   block (T·k ids, 16 KB at a prefill) so that one launch does it all.
+//   Where the caller passes a counter, block (0, 0)'s first warp adds the
+//   number of experts with pairs to it: one add by one thread a launch, so
+//   the launches of a stream add in their order and no atomic is needed.
 // swiglu_cast: bf16 g and u, silu(g) * u in fp32 (torch's silu formula),
 //   rounded to bf16; 8 elements a thread.
 // moe_combine: each block takes a few tokens, finds their k rows in the
@@ -81,7 +85,8 @@ __device__ __forceinline__ void cluster_sync() {
 template <typename X, typename W>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
     moe_route_kernel(const X* __restrict__ x, const W* __restrict__ w, int* __restrict__ ids,
-                     float* __restrict__ weights, int T, int d, int E, int k, int tb) {
+                     float* __restrict__ weights, int T, int d, int E, int k, int tb,
+                     int renorm) {
   __shared__ float xs[kRouteTokens * kRouteChunk];
   __shared__ float ws[kRouteStage];   // a chunk of router rows; then the partials
   float* part = ws;
@@ -243,11 +248,15 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   for (int idx = tid; idx < ntok * k; idx += kThreads) {
     const int t = idx / k;
     const float* pt = prob + t * E;
-    float total = 0.f;
-    for (int q = 0; q < k; ++q) total += pt[sel[t * k + q]];
     const size_t o = static_cast<size_t>(t0) * k + idx;
     ids[o] = sel[idx];
-    weights[o] = pt[sel[idx]] / fmaxf(total, 1e-9f);
+    if (renorm) {
+      float total = 0.f;
+      for (int q = 0; q < k; ++q) total += pt[sel[t * k + q]];
+      weights[o] = pt[sel[idx]] / fmaxf(total, 1e-9f);
+    } else {
+      weights[o] = pt[sel[idx]];
+    }
   }
 }
 
@@ -258,7 +267,7 @@ __global__ void __launch_bounds__(kThreads)
     moe_dispatch_kernel(const int* __restrict__ ids, const uint4* __restrict__ x,
                         int* __restrict__ order, int* __restrict__ offs,
                         uint4* __restrict__ rows, int N, int k, int E, int vec,
-                        int cols_per_block) {
+                        int cols_per_block, int* __restrict__ count) {
   __shared__ int total[kMaxExperts];
   __shared__ int first[kMaxExperts];   // pairs of the expert before this segment, then its start
   __shared__ int pos_s[kSegment];
@@ -282,10 +291,11 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   if (tid < 32) {   // exclusive scan of the counts; the cumulative ends are offs
-    int carry = 0;
+    int carry = 0, reached = 0;
     for (int base = 0; base < E; base += 32) {
       const int e = base + lane;
       const int c = e < E ? total[e] : 0;
+      reached += c > 0;
       int inc = c;
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1) {
@@ -298,6 +308,8 @@ __global__ void __launch_bounds__(kThreads)
       }
       carry += __shfl_sync(kAll, inc, 31);
     }
+    reached = __reduce_add_sync(kAll, reached);
+    if (count != nullptr && lane == 0 && blockIdx.x == 0 && blockIdx.y == 0) *count += reached;
     const int j = seg0 + lane;
     const int e = j < N ? ids[j] : -1;
     const bool valid = j < N && e >= 0 && e < E;
@@ -391,11 +403,11 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename X, typename W>
 cudaError_t launch_route(const void* x, const void* w, void* ids, void* weights, int T, int d,
-                         int E, int k, int tb, cudaStream_t s) {
+                         int E, int k, int tb, int renorm, cudaStream_t s) {
   const unsigned blocks = static_cast<unsigned>((T + tb - 1) / tb * kCluster);
   moe_route_kernel<X, W><<<blocks, kThreads, 0, s>>>(
       static_cast<const X*>(x), static_cast<const W*>(w), static_cast<int*>(ids),
-      static_cast<float*>(weights), T, d, E, k, tb);
+      static_cast<float*>(weights), T, d, E, k, tb, renorm);
   return cudaGetLastError();
 }
 
@@ -403,10 +415,11 @@ cudaError_t launch_route(const void* x, const void* w, void* ids, void* weights,
 }  // namespace repro_torch
 
 // x (T, d) and the router (d, E): dtype 0 fp32, 1 bf16 each. ids (T, k)
-// int32, weights (T, k) fp32. tb tokens a block (1..8).
+// int32, weights (T, k) fp32. tb tokens a block (1..8). renorm 1: the k
+// weights divided by their sum; 0: the k probabilities.
 extern "C" int moe_route_launch(const void* x, const void* w, void* ids, void* weights, int T,
                                 int d, int E, int k, int x_dtype, int w_dtype, int tb,
-                                void* stream) {
+                                int renorm, void* stream) {
   using namespace repro_torch::moe;
   if (E < 1 || E > kMaxExperts || k < 1 || k > kMaxTopK || k > E || tb < 1 ||
       tb > kRouteTokens)
@@ -415,19 +428,20 @@ extern "C" int moe_route_launch(const void* x, const void* w, void* ids, void* w
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (x_dtype == 1)
-    err = w_dtype == 1 ? launch_route<__nv_bfloat16, __nv_bfloat16>(x, w, ids, weights, T, d, E, k, tb, s)
-                       : launch_route<__nv_bfloat16, float>(x, w, ids, weights, T, d, E, k, tb, s);
+    err = w_dtype == 1 ? launch_route<__nv_bfloat16, __nv_bfloat16>(x, w, ids, weights, T, d, E, k, tb, renorm, s)
+                       : launch_route<__nv_bfloat16, float>(x, w, ids, weights, T, d, E, k, tb, renorm, s);
   else
-    err = w_dtype == 1 ? launch_route<float, __nv_bfloat16>(x, w, ids, weights, T, d, E, k, tb, s)
-                       : launch_route<float, float>(x, w, ids, weights, T, d, E, k, tb, s);
+    err = w_dtype == 1 ? launch_route<float, __nv_bfloat16>(x, w, ids, weights, T, d, E, k, tb, renorm, s)
+                       : launch_route<float, float>(x, w, ids, weights, T, d, E, k, tb, renorm, s);
   return static_cast<int>(err);
 }
 
 // ids (N = T·k,) int32 in [0, E); x (T, vec) 16-byte words. order (N,),
-// offs (E,) int32; rows (N, vec). n_col column blocks a segment.
+// offs (E,) int32; rows (N, vec). n_col column blocks a segment. count:
+// null, or one int32 that gains the number of experts with pairs.
 extern "C" int moe_dispatch_launch(const void* ids, const void* x, void* order, void* offs,
                                    void* rows, int N, int k, int E, int vec, int n_col,
-                                   void* stream) {
+                                   void* count, void* stream) {
   using namespace repro_torch::moe;
   if (E < 1 || E > kMaxExperts || k < 1 || vec < 1 || n_col < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -437,7 +451,8 @@ extern "C" int moe_dispatch_launch(const void* ids, const void* x, void* order, 
                   static_cast<unsigned>((vec + cols - 1) / cols));
   moe_dispatch_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ids), static_cast<const uint4*>(x), static_cast<int*>(order),
-      static_cast<int*>(offs), static_cast<uint4*>(rows), N, k, E, vec, cols);
+      static_cast<int*>(offs), static_cast<uint4*>(rows), N, k, E, vec, cols,
+      static_cast<int*>(count));
   return static_cast<int>(cudaGetLastError());
 }
 

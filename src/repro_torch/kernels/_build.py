@@ -44,8 +44,8 @@ SIGNATURES = {
     "flat_topk_launch": [P, P, P, P, P, P, P, P, P, P,
                          LL, I, I, I, I, P],
     "mamba_scan_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
-    "moe_route_launch": [P, P, P, P, I, I, I, I, I, I, I, P],
-    "moe_dispatch_launch": [P, P, P, P, P, I, I, I, I, I, P],
+    "moe_route_launch": [P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "moe_dispatch_launch": [P, P, P, P, P, I, I, I, I, I, P, P],
     "swiglu_cast_launch": [P, P, P, LL, P],
     "moe_combine_launch": [P, P, P, P, I, I, I, I, I, I, P],
 }

@@ -11,10 +11,15 @@ load-balancing loss (serving), and the plain versions below, which are
 those PyTorch ops, everywhere else.
 
     moe_route    — x · router in fp32 FMAs, softmax, top-k (ties to the
-                   lower expert), the k weights renormalised
+                   lower expert), the k weights renormalised, or with
+                   ``renormalize=False`` the k probabilities as they are
+                   (Jamba's router, ``models/variants.py``)
     moe_dispatch — the (token, choice) pairs' stable sort by expert (the
                    order ``torch.sort(stable=True)`` gives), the cumulative
-                   per-expert ends, and the pairs' rows of x gathered
+                   per-expert ends, and the pairs' rows of x gathered; with
+                   a ``count`` it adds the number of experts the pairs
+                   reach to that device counter (one thread of one block:
+                   no atomics, the stream orders the adds)
     swiglu_cast  — silu(g) · u in fp32 from bf16 g and u, rounded to bf16
     moe_combine  — each token's k rows of the down product, weighted and
                    summed in fp32 in the order torch's sum takes, rounded
@@ -51,36 +56,42 @@ _FILL_BLOCKS = 64     # blocks the dispatch and combine aim for at a small T
 
 # ------------------------------------------------------------ plain versions
 
-def route_plain(x: torch.Tensor, router_w: torch.Tensor, k: int, e_pad: int | None = None
+def route_plain(x: torch.Tensor, router_w: torch.Tensor, k: int, e_pad: int | None = None,
+                renormalize: bool = True
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(probs (T, e_pad), ids (T, k) int64, weights (T, k) fp32
-    renormalised). Ties go to the lower expert, as ``lax.top_k`` breaks
-    them: a stable descending sort of the probabilities, first k taken
-    (``torch.topk`` promises no order among equals). Padding experts
-    (``e_pad`` beyond the router's columns) score -1e30, as the
-    reference's."""
+    renormalised, or the k probabilities without ``renormalize``). Ties go
+    to the lower expert, as ``lax.top_k`` breaks them: a stable descending
+    sort of the probabilities, first k taken (``torch.topk`` promises no
+    order among equals). Padding experts (``e_pad`` beyond the router's
+    columns) score -1e30, as the reference's."""
     logits = x.to(torch.float32) @ router_w.to(torch.float32)          # (T, E)
     if e_pad is not None and e_pad > logits.shape[-1]:
         logits = F.pad(logits, (0, e_pad - logits.shape[-1]), value=-1e30)
     probs = torch.softmax(logits, dim=-1)
     weights, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, ids = weights[:, :k], ids[:, :k]
-    weights = weights / weights.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+    if renormalize:
+        weights = weights / weights.sum(dim=-1, keepdim=True).clamp(min=1e-9)
     return probs, ids, weights
 
 
-def dispatch_plain(ids: torch.Tensor, x: torch.Tensor, n_experts: int
+def dispatch_plain(ids: torch.Tensor, x: torch.Tensor, n_experts: int,
+                   count: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """ids (T, k), x (T, d) -> (order (T·k,) int64: the pairs stable-sorted
     by expert; offs (E,) int32: each expert's cumulative row end, empty
     experts repeating; rows (T·k, d) = x[order // k]). The per-expert ends
     come from a ``searchsorted`` of the sorted ids on the device
-    (``bincount`` would read its maximum back)."""
+    (``bincount`` would read its maximum back). ``count`` (a one-element
+    int32 tensor) gains the number of experts with rows, on the device."""
     k = ids.shape[-1]
     sorted_ids, order = torch.sort(ids.reshape(-1), stable=True)
     tok = torch.div(order, k, rounding_mode="floor")            # pair -> token
     bounds = torch.arange(n_experts, dtype=sorted_ids.dtype, device=x.device)
     offs = torch.searchsorted(sorted_ids, bounds, right=True).to(torch.int32)
+    if count is not None:
+        count += (offs > F.pad(offs[:-1], (1, 0))).sum().to(count.dtype)
     return order, offs, x.index_select(0, tok)
 
 
@@ -119,14 +130,15 @@ def _column_blocks(row_blocks: int, vec: int) -> int:
     return max(1, min(-(-_FILL_BLOCKS // max(row_blocks, 1)), vec // 16))
 
 
-def moe_route(x: torch.Tensor, router_w: torch.Tensor, k: int
+def moe_route(x: torch.Tensor, router_w: torch.Tensor, k: int, renormalize: bool = True
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (T, d) and router (d, E), each fp32 or bf16 -> (ids (T, k) int32,
-    weights (T, k) fp32 renormalised over the k). A CPU x takes
-    ``route_plain``; a CUDA x launches the kernel (contiguous tensors, E ≤
-    512, k ≤ 16 and k ≤ E)."""
+    weights (T, k) fp32: renormalised over the k, or without
+    ``renormalize`` the k probabilities). A CPU x takes ``route_plain``; a
+    CUDA x launches the kernel (contiguous tensors, E ≤ 512, k ≤ 16 and
+    k ≤ E)."""
     if x.device.type == "cpu":
-        _, ids, weights = route_plain(x, router_w, k)
+        _, ids, weights = route_plain(x, router_w, k, renormalize=renormalize)
         return ids.to(torch.int32), weights
     _build.require_cuda("moe_route", x, router_w)
     T, d = x.shape
@@ -143,20 +155,24 @@ def moe_route(x: torch.Tensor, router_w: torch.Tensor, k: int
     tb = max(1, min(_ROUTE_TOKENS, T // 64))
     err = _build.library().moe_route_launch(
         x.data_ptr(), router_w.data_ptr(), ids.data_ptr(), weights.data_ptr(), T, d, E, k,
-        _DTYPES[x.dtype], _DTYPES[router_w.dtype], tb, _build.stream(x.device))
+        _DTYPES[x.dtype], _DTYPES[router_w.dtype], tb, int(renormalize),
+        _build.stream(x.device))
     _build.check(err, "moe_route")
     _build.count(moe_route)
     return ids, weights
 
 
-def moe_dispatch(ids: torch.Tensor, x: torch.Tensor, n_experts: int
+def moe_dispatch(ids: torch.Tensor, x: torch.Tensor, n_experts: int,
+                 count: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """ids (T, k) int32 in [0, E), x (T, d) -> (order (T·k,), offs (E,)
     int32, rows (T·k, d) in x's dtype), as ``dispatch_plain`` (which a CPU
-    x takes; its order is int64, the kernel's int32). A CUDA x launches
-    the kernel: contiguous tensors, E ≤ 512, 16-byte rows."""
+    x takes; its order is int64, the kernel's int32), and ``count`` (a
+    one-element int32 tensor on x's device) gains the experts with rows. A
+    CUDA x launches the kernel: contiguous tensors, E ≤ 512, 16-byte
+    rows."""
     if x.device.type == "cpu":
-        return dispatch_plain(ids, x, n_experts)
+        return dispatch_plain(ids, x, n_experts, count)
     _build.require_cuda("moe_dispatch", ids, x)
     T, d = x.shape
     if ids.dtype != torch.int32 or ids.dim() != 2 or ids.shape[0] != T:
@@ -165,6 +181,10 @@ def moe_dispatch(ids: torch.Tensor, x: torch.Tensor, n_experts: int
     if not 1 <= n_experts <= MAX_EXPERTS:
         raise ValueError(f"moe_dispatch: E {n_experts} outside 1..{MAX_EXPERTS}")
     _aligned("moe_dispatch", x)
+    if count is not None and (count.dtype != torch.int32 or count.numel() != 1
+                              or count.device != x.device):
+        raise ValueError(f"moe_dispatch: count must be one int32 element on {x.device} "
+                         f"(got {tuple(count.shape)} {count.dtype} on {count.device})")
     N, k = ids.numel(), ids.shape[1]
     order = torch.empty((N,), dtype=torch.int32, device=x.device)
     offs = torch.zeros((n_experts,), dtype=torch.int32, device=x.device) if N == 0 else \
@@ -173,7 +193,8 @@ def moe_dispatch(ids: torch.Tensor, x: torch.Tensor, n_experts: int
     vec = d * x.element_size() // 16
     err = _build.library().moe_dispatch_launch(
         ids.data_ptr(), x.data_ptr(), order.data_ptr(), offs.data_ptr(), rows.data_ptr(),
-        N, k, n_experts, vec, _column_blocks(-(-N // 32), vec), _build.stream(x.device))
+        N, k, n_experts, vec, _column_blocks(-(-N // 32), vec),
+        0 if count is None else count.data_ptr(), _build.stream(x.device))
     _build.check(err, "moe_dispatch")
     _build.count(moe_dispatch)
     return order, offs, rows

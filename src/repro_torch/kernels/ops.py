@@ -224,19 +224,22 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tens
     return _ms.mamba_scan(*args, h_out=h_out)
 
 
-def moe_route(x: torch.Tensor, router_w: torch.Tensor, k: int
+def moe_route(x: torch.Tensor, router_w: torch.Tensor, k: int, renormalize: bool = True
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k routing: x (T, d), router (d, E) -> (ids (T, k) int32, weights
-    (T, k) fp32 renormalised over the k); ties go to the lower expert."""
-    return _mf.moe_route(x.contiguous(), router_w.contiguous(), k)
+    (T, k) fp32 renormalised over the k, or the k probabilities without
+    ``renormalize``); ties go to the lower expert."""
+    return _mf.moe_route(x.contiguous(), router_w.contiguous(), k, renormalize)
 
 
-def moe_dispatch(ids: torch.Tensor, x: torch.Tensor, n_experts: int
+def moe_dispatch(ids: torch.Tensor, x: torch.Tensor, n_experts: int,
+                 count: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The (token, choice) pairs of ids (T, k) stable-sorted by expert ->
     (order (T·k,), offs (E,) int32 cumulative ends, rows (T·k, d) =
-    x[order // k])."""
-    return _mf.moe_dispatch(_i32(ids), x.contiguous(), n_experts)
+    x[order // k]); ``count`` (one int32 element) gains the experts the
+    pairs reach."""
+    return _mf.moe_dispatch(_i32(ids), x.contiguous(), n_experts, count)
 
 
 def swiglu_cast(g: torch.Tensor, u: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

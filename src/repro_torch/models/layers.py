@@ -17,6 +17,7 @@ import math
 import torch
 
 from repro_torch.distributed import collectives as coll
+from repro_torch.models.variants import variant_of
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -103,7 +104,9 @@ def init_attention(gen, cfg, device) -> dict:
 def init_mamba(gen, cfg, device) -> dict:
     """A Mamba1 mixer's parameters: ``A_log``, ``dt_bias`` and ``D`` in fp32,
     the rest in the config's dtype. ``A_log`` is the draw U(log 0.5, log 16)
-    itself (the reference's ``log(-A)`` with ``A = -exp(U)``)."""
+    itself (the reference's ``log(-A)`` with ``A = -exp(U)``). A model whose
+    variant has inner norms (``models/variants.py``) also gets ``dt_norm``,
+    ``b_norm`` and ``c_norm`` (fp32 zeros: unit weights), drawing nothing."""
     dt = dtype_of(cfg)
     d, di, ns = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_d_state
     dt_rank = max(1, d // 16)
@@ -112,15 +115,19 @@ def init_mamba(gen, cfg, device) -> dict:
         u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
         return u.mul_(hi - lo).add_(lo)
 
-    return {"w_in": normal(gen, (d, 2 * di), dt, d ** -0.5, device),       # [x, z]
-            "conv_w": normal(gen, (cfg.ssm_d_conv, di), dt, 0.2, device),
-            "conv_b": torch.zeros(di, dtype=dt, device=device),
-            "w_x_proj": normal(gen, (di, dt_rank + 2 * ns), dt, di ** -0.5, device),
-            "w_dt": normal(gen, (dt_rank, di), dt, dt_rank ** -0.5, device),
-            "dt_bias": torch.log(torch.expm1(uniform((di,), 1e-3, 1e-1).clamp_(min=1e-4))),
-            "A_log": uniform((di, ns), math.log(0.5), math.log(16.0)),
-            "D": torch.ones(di, dtype=torch.float32, device=device),
-            "w_out": normal(gen, (di, d), dt, di ** -0.5, device)}
+    p = {"w_in": normal(gen, (d, 2 * di), dt, d ** -0.5, device),       # [x, z]
+         "conv_w": normal(gen, (cfg.ssm_d_conv, di), dt, 0.2, device),
+         "conv_b": torch.zeros(di, dtype=dt, device=device),
+         "w_x_proj": normal(gen, (di, dt_rank + 2 * ns), dt, di ** -0.5, device),
+         "w_dt": normal(gen, (dt_rank, di), dt, dt_rank ** -0.5, device),
+         "dt_bias": torch.log(torch.expm1(uniform((di,), 1e-3, 1e-1).clamp_(min=1e-4))),
+         "A_log": uniform((di, ns), math.log(0.5), math.log(16.0)),
+         "D": torch.ones(di, dtype=torch.float32, device=device),
+         "w_out": normal(gen, (di, d), dt, di ** -0.5, device)}
+    if variant_of(cfg).ssm_inner_norms:     # Δ_in, B and C norms, unit weights
+        for name, n in (("dt_norm", dt_rank), ("b_norm", ns), ("c_norm", ns)):
+            p[name] = torch.zeros(n, dtype=torch.float32, device=device)
+    return p
 
 
 def init_moe(gen, cfg, device) -> dict:

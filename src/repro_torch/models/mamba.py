@@ -1,4 +1,4 @@
-"""Mamba1 block (falcon-mamba; jamba's SSM layers when its slice comes).
+"""Mamba1 block (falcon-mamba; jamba's SSM layers).
 
 The counterpart of ``repro.models.mamba``. The reference computes the scan
 in jnp (an outer ``lax.scan`` over chunks around an ``associative_scan``
@@ -15,6 +15,11 @@ The dtype steps are the reference's, one for one: the x-projection is
 rounded to x's dtype before its fp32 split, the causal conv runs as K
 shifted multiply-adds in x's dtype (``F.conv1d`` would accumulate bf16
 otherwise), and ``silu`` of the conv output is rounded back to x's dtype.
+
+Where a layer's parameters hold ``dt_norm``, ``b_norm`` and ``c_norm``
+(Jamba's mixer, ``models/variants.py``) Δ_in, B and C each pass an RMS
+norm with that weight, in fp32, before Δ's projection; the reference has
+no such norms, and no other model's parameters hold them.
 
 Training runs ``mamba_block`` with no state: the scan starts from zeros
 and writes nothing in place. A decode step is ``mamba_block`` at L = 1
@@ -33,7 +38,7 @@ import torch.nn.functional as F
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.context import P
 from repro_torch.kernels import ops
-from repro_torch.models.layers import row_parallel
+from repro_torch.models.layers import rms_norm, row_parallel
 
 
 def _ssm_params(x: torch.Tensor, p: dict, cfg, dist=None, axis=None):
@@ -49,6 +54,10 @@ def _ssm_params(x: torch.Tensor, p: dict, cfg, dist=None, axis=None):
         # every rank reads the whole sum, then uses it on its own channels
         proj = coll.copy_to(coll.reduce_from(part, dist, axis), dist, axis).to(x.dtype)
     dt_in, Bc, Cc = proj.to(torch.float32).split([dt_rank, N, N], dim=-1)
+    if "dt_norm" in p:      # Jamba's inner norms (models/variants.py), fp32
+        dt_in = rms_norm(dt_in, p["dt_norm"], cfg.norm_eps)
+        Bc = rms_norm(Bc, p["b_norm"], cfg.norm_eps)
+        Cc = rms_norm(Cc, p["c_norm"], cfg.norm_eps)
     dt = F.softplus(dt_in @ p["w_dt"].to(torch.float32) + p["dt_bias"])
     A = -torch.exp(p["A_log"].to(torch.float32))
     return dt, Bc, Cc, A
@@ -81,6 +90,8 @@ def mamba_mix(x: torch.Tensor, p: dict, cfg, h0=None, conv0=None, h_out=None,
     return y, h_final, conv_tail
 
 
+INNER_NORMS = ("dt_norm", "b_norm", "c_norm")
+
 # Each weight's layout on a model rank's channels (None: the axis).
 _CHANNEL_LAYOUT = {"w_in": (None, "c"), "conv_w": (None, "c"), "conv_b": ("c",),
                    "w_x_proj": ("c", None), "w_dt": (None, "c"), "dt_bias": ("c",),
@@ -101,7 +112,10 @@ def _channel_weights(p: dict, pspec: dict | None, dist, cfg):
     axis = M if split else None
     want = {k: P(*(axis if a == "c" else None for a in lay))
             for k, lay in _CHANNEL_LAYOUT.items()}
-    return {k: coll.fetch(p[k], pspec[k], want[k], dist) for k in want}, axis
+    out = {k: coll.fetch(p[k], pspec[k], want[k], dist) for k in want}
+    # the inner norms (a variant's, over Δ_in, B and C whole): replicated
+    out.update({k: coll.fetch(p[k], pspec[k], P(None), dist) for k in INNER_NORMS if k in p})
+    return out, axis
 
 
 def mamba_block(x: torch.Tensor, p: dict, cfg, state: dict | None = None,

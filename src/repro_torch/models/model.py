@@ -443,13 +443,17 @@ class Model:
         return {"specs": self.serve_plan["layers"], "cspecs": cache.specs}
 
     @torch.inference_mode()
-    def prefill(self, params, batch: dict, max_len: int, *, batch_size: int | None = None):
+    def prefill(self, params, batch: dict, max_len: int, *, batch_size: int | None = None,
+                reached: torch.Tensor | None = None):
         """tokens (B, S) [+ audio (encdec) or patches (vlm)] -> (last-token
         logits (B, Vp) fp32, cache, kv_len (B,) int32). Chunked at
         ``cfg.prefill_chunk`` when it divides S (a Mamba layer's state
         carries from chunk to chunk). Under a mesh the inputs and outputs
         are this rank's rows of a global batch of ``batch_size`` (required
-        there; see the module's docstring)."""
+        there; see the module's docstring). ``reached`` (one int32 element
+        on the model's device) gains, on the device, the experts each MoE
+        layer's tokens reach, summed over the layers (not kept under a
+        mesh)."""
         cfg = self.cfg
         extra = self._extra_input(batch)
         tokens = batch["tokens"].to(self.device)
@@ -480,24 +484,26 @@ class Model:
         for off in range(0, S, chunk):
             xc = tf.stack_apply(x[:, off:off + chunk], params["layers"], cfg, self.dist,
                                 mode="prefill", positions=positions[off:off + chunk],
-                                cache=cache, kv_offset=off, **self._serve_args(cache))
+                                cache=cache, kv_offset=off, reached=reached,
+                                **self._serve_args(cache))
         x_last = rms_norm(xc[:, -1], params["final_norm"], cfg.norm_eps)
         return (self._logits_last(params, x_last), cache,
                 torch.full((x.shape[0],), S, dtype=torch.int32, device=self.device))
 
     @torch.inference_mode()
     def decode_step(self, params, cache: dict, tokens: torch.Tensor,
-                    kv_len: torch.Tensor):
+                    kv_len: torch.Tensor, *, reached: torch.Tensor | None = None):
         """One token per sequence: tokens (B,), kv_len (B,) int32. Writes
         the cache in place; returns (logits (B, Vp), cache, kv_len + 1).
-        Under a mesh this rank's rows and ``prefill``'s ``MeshCache``."""
+        Under a mesh this rank's rows and ``prefill``'s ``MeshCache``.
+        ``reached``: as ``prefill``'s."""
         cfg = self.cfg
         _check_room(cache, kv_len, self.dist)
         plan = self.serve_plan if self.meshed else None
         x = self._dec_inputs(params, tokens[:, None], kv_len[:, None], plan)
         x = tf.stack_apply(x, params["layers"], cfg, self.dist, mode="decode",
                            positions=kv_len[:, None], cache=cache, kv_len=kv_len,
-                           **self._serve_args(cache))
+                           reached=reached, **self._serve_args(cache))
         x_last = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
         return self._logits_last(params, x_last), cache, kv_len + 1
 

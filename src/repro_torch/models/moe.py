@@ -117,6 +117,7 @@ from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.context import P, axis_names
 from repro_torch.kernels import moe_fused as _mf
 from repro_torch.kernels import ops
+from repro_torch.models.variants import variant_of
 
 # The plain versions of ``moe_fused``'s steps under the ``ops`` wrappers'
 # names: ``moe_ffn_routed`` takes one or the other.
@@ -125,10 +126,12 @@ _PLAIN = types.SimpleNamespace(moe_dispatch=_mf.dispatch_plain, swiglu_cast=_mf.
 
 
 def _top_k(x, router_w, cfg, e_pad: int):
-    """(probs (T, e_pad), ids (T, k), weights (T, k) renormalised):
+    """(probs (T, e_pad), ids (T, k), weights (T, k) renormalised unless
+    the model's variant says not, ``models/variants.py``):
     ``moe_fused.route_plain``, ties to the lower expert, padding experts
     at -1e30."""
-    return _mf.route_plain(x, router_w, cfg.moe_top_k, e_pad)
+    return _mf.route_plain(x, router_w, cfg.moe_top_k, e_pad,
+                           renormalize=variant_of(cfg).moe_renormalize)
 
 
 def _expert_counts(ids: torch.Tensor, e_pad: int) -> torch.Tensor:
@@ -147,12 +150,15 @@ def _switch_aux(probs: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def route(x: torch.Tensor, router_w: torch.Tensor, cfg
           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """Top-k routing. x (T, d) -> ids (T, k) int32, weights (T, k) fp32
-    (renormalised over the k), aux load-balancing loss (scalar, Switch:
-    ``_switch_aux``). On the card outside autograd the ``moe_route``
-    kernel routes and aux is None (serving discards it; a caller that
-    wants it computes it, ``moe_ffn_routed``); otherwise ``_top_k``."""
+    (renormalised over the k, or the k probabilities where the model's
+    variant keeps them, ``models/variants.py``), aux load-balancing loss
+    (scalar, Switch: ``_switch_aux``). On the card outside autograd the
+    ``moe_route`` kernel routes and aux is None (serving discards it; a
+    caller that wants it computes it, ``moe_ffn_routed``); otherwise
+    ``_top_k``."""
     if x.device.type == "cuda" and not ops._differentiable(x, router_w):
-        ids, weights = ops.moe_route(x, router_w, cfg.moe_top_k)
+        ids, weights = ops.moe_route(x, router_w, cfg.moe_top_k,
+                                     variant_of(cfg).moe_renormalize)
         return ids, weights, None
     probs, ids, weights = _top_k(x, router_w, cfg, router_w.shape[-1])
     return ids.to(torch.int32), weights, _switch_aux(probs, ids)
@@ -274,7 +280,8 @@ def grouped_mm_has_backward(device: str) -> tuple[bool, str]:
     return True, ""
 
 
-def moe_ffn_routed(x: torch.Tensor, p: dict, cfg, *, aux: bool = True
+def moe_ffn_routed(x: torch.Tensor, p: dict, cfg, *, aux: bool = True,
+                   count: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Sort-based routed MoE (the reference's ``_moe_local`` at one data
     shard). x (T, d) -> (y (T, d) in x's dtype, aux; None without
@@ -283,7 +290,9 @@ def moe_ffn_routed(x: torch.Tensor, p: dict, cfg, *, aux: bool = True
     back to (token, choice) order and are summed over the k choices in
     fp32. On the card outside autograd and without ``aux`` (serving) the
     steps around the products are ``moe_fused``'s kernels; otherwise
-    (the CPU, "meta", training) their plain versions."""
+    (the CPU, "meta", training) their plain versions. ``count`` (one
+    int32 element on x's device) gains the number of experts the tokens
+    reach, added on the device by the dispatch."""
     E = cfg.n_experts
     ids, weights, loss = route(x, p["router"], cfg)
     if aux and loss is None:        # the routing kernel ran (on the card, no autograd)
@@ -291,7 +300,7 @@ def moe_ffn_routed(x: torch.Tensor, p: dict, cfg, *, aux: bool = True
     fused = (x.device.type == "cuda" and not aux
              and not ops._differentiable(x, *p.values()))
     step = ops if fused else _PLAIN
-    order, offs, rows = step.moe_dispatch(ids, x, E)           # rows (N = T·k, d)
+    order, offs, rows = step.moe_dispatch(ids, x, E, count)    # rows (N = T·k, d)
     g = grouped_mm(rows, p["w_gate"], offs)
     u = grouped_mm(rows, p["w_up"], offs)
     hidden = step.swiglu_cast(g, u, x.dtype)
@@ -504,11 +513,14 @@ def _moe_dense_sharded(x, p, ps, cfg, dist, rows):
 
 
 def moe_apply(x: torch.Tensor, p: dict, cfg, dist=None, *, pspec: dict | None = None,
-              rows=..., aux: bool = True) -> tuple[torch.Tensor, torch.Tensor | None]:
+              rows=..., aux: bool = True, count: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """x (B, S, d) or (T, d) -> (y of x's shape, aux; None without
     ``aux``, which serving passes). Without a mesh the routed path, which
-    then computes no aux. Under a mesh (``p`` this rank's blocks,
-    ``pspec`` their specs, x this rank's rows) the reference's dispatch on the global
+    then computes no aux, and adds the experts its tokens reach to
+    ``count`` where one is given (``moe_ffn_routed``). Under a mesh, which
+    keeps no ``count`` (``p`` this rank's blocks,
+    ``pspec`` their specs, x this rank's rows), the reference's dispatch on the global
     token count: EP, token-parallel for small experts (``d_ff_expert <
     128 · n_model``), where there is more than one data shard and the
     global tokens split over the token shards; every expert on every token
@@ -520,7 +532,7 @@ def moe_apply(x: torch.Tensor, p: dict, cfg, dist=None, *, pspec: dict | None = 
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     if dist is None or dist.mesh is None:
-        y, loss = moe_ffn_routed(x2, p, cfg, aux=aux)
+        y, loss = moe_ffn_routed(x2, p, cfg, aux=aux, count=count)
         return y.reshape(shape), loss
     batch = dist.batch_axes
     serving = rows is not ...

@@ -368,7 +368,7 @@ def mamba_sublayer(x, sp, cfg, *, state=None, fresh: bool = False, dist=None, ps
 
 def sublayer_apply(x, sp, cfg, spec: SubLayerSpec, dist=None, *, mode: str, positions,
                    cache=None, slot: int = 0, kv_len=None, kv_offset: int = 0,
-                   enc_kv=None, pspec=None, cspecs=None):
+                   enc_kv=None, pspec=None, cspecs=None, reached=None):
     """One layer: its mixer, its cross-attention if it has one, then its
     MLP if it has one -> (x, aux), aux its MoE load-balancing loss (fp32,
     0 without experts) in train mode and None in prefill and decode, which
@@ -383,7 +383,9 @@ def sublayer_apply(x, sp, cfg, spec: SubLayerSpec, dist=None, *, mode: str, posi
     and ``cspecs`` their specs (``launch.sharding.cache_specs``), whose
     batch entry is also the axes the rows split over; in train mode the
     rows split over the batch axes and aux is this rank's term of the
-    global loss (``moe.moe_apply``)."""
+    global loss (``moe.moe_apply``). ``reached`` (one int32 element, or
+    None) gains the experts an MoE layer's tokens reach (``moe_apply``'s
+    ``count``)."""
     meshed = dist is not None and dist.mesh is not None
     if meshed and (pspec is None or (mode != "train" and cspecs is None)):
         raise ValueError(f"{cfg.name}: a layer under a mesh needs its specs (pspec) "
@@ -419,7 +421,7 @@ def sublayer_apply(x, sp, cfg, spec: SubLayerSpec, dist=None, *, mode: str, posi
         h = rms_norm(x, sp["ln_mlp"], cfg.norm_eps)
         rows = ... if cspecs is None else next(iter(cspecs.values()))[1]
         y, aux = moe_mod.moe_apply(h, sp["mlp"], cfg, dist, pspec=pspec and pspec["mlp"],
-                                   rows=rows, aux=train)
+                                   rows=rows, aux=train, count=reached)
         x = x + y.to(x.dtype)
     return x, aux
 
@@ -444,7 +446,7 @@ def _remat(layer_fn, x, remat: str):
 
 def stack_apply(x, layers: list[dict], cfg, dist=None, *, mode: str, positions,
                 cache=None, kv_len=None, kv_offset: int = 0, pattern=None, enc_kv=None,
-                specs=None, cspecs=None):
+                specs=None, cspecs=None, reached=None):
     """Run every layer over x. ``cache`` (``init_cache``'s dict) is updated
     in place in prefill and decode modes, which return x; train mode takes
     none and returns (x, aux), aux the summed MoE load-balancing loss,
@@ -454,7 +456,9 @@ def stack_apply(x, layers: list[dict], cfg, dist=None, *, mode: str, positions,
     layers. Under a mesh (``dist``) ``layers`` are this rank's blocks and
     ``specs`` their specs (the plan's ``"layers"``), and in prefill and
     decode ``cache`` holds this rank's blocks in the layout ``cspecs``
-    (``launch.sharding.cache_specs``)."""
+    (``launch.sharding.cache_specs``). In prefill and decode ``reached``
+    (one int32 element, or None) gains, layer by layer, the experts each
+    MoE layer's tokens reach."""
     if pattern is None:
         pattern = layer_pattern(cfg)
     if mode == "train":
@@ -472,5 +476,6 @@ def stack_apply(x, layers: list[dict], cfg, dist=None, *, mode: str, positions,
     for i, (sp, spec, slot) in enumerate(zip(layers, pattern, cache_slots(pattern))):
         x, _ = sublayer_apply(x, sp, cfg, spec, dist, mode=mode, positions=positions,
                               cache=cache, slot=slot, kv_len=kv_len, kv_offset=kv_offset,
-                              pspec=None if specs is None else specs[i], cspecs=cspecs)
+                              pspec=None if specs is None else specs[i], cspecs=cspecs,
+                              reached=reached)
     return x

@@ -10,7 +10,9 @@ keeps the shape, and the tokens, of the eager loop):
   the argmax of the last logits (first index on ties, as ``jnp.argmax``)
   and token 0 of a static (B, max_new) output. The cache it allocates
   (K/V, or the Mamba state) lives in the engine's graph pool and is
-  re-zeroed by every replay;
+  re-zeroed by every replay, as are the two counters of the experts the
+  MoE layers reach (in the prefill, and summed over the decode steps),
+  which sit in one buffer after the output;
 * **decode**: ``Model.decode_step`` on that cache (written in place) and
   the argmax, which writes the token into its column of the output and
   the token and ``kv_len + 1`` back over the program's own inputs. It is
@@ -19,8 +21,11 @@ keeps the shape, and the tokens, of the eager loop):
 ``generate`` runs the two programs; the engine gives it the prompt
 tokens alone, a caller of the model facade may add a whisper's audio or
 a llava's patches. The tokens come to the host in ONE copy after the
-last step, never one per token. On the CPU the same programs run eagerly. The programs are
-the same for every ported family: a dense or MoE model's cache holds
+last step, never one per token, and the expert counters with them
+(``EngineStats.experts_prefill`` / ``experts_decode``, and the
+``model_generate`` span's attributes of the same names). On the CPU the
+same programs run eagerly. The programs are the same for every ported
+family: a dense or MoE model's cache holds
 K/V, an ssm model's (falcon-mamba) its Mamba state, a hybrid one's
 (jamba) both, and all take ``kv_len``. An MoE layer's routing keeps
 static shapes and never syncs with the host (``models/moe.py``), so it
@@ -121,6 +126,12 @@ class EngineStats:
     # steps the watchdog flagged as stragglers (wall time > factor × the
     # trailing-median step time) — the serving-side liveness signal.
     straggler_steps: int = 0
+    # experts the MoE layers reached, each layer's distinct experts summed
+    # over the layers and the generations: in the prefills, and in the
+    # decode steps (counted on the device by the dispatch, read with the
+    # tokens' one copy; 0 without experts, and under a mesh).
+    experts_prefill: int = 0
+    experts_decode: int = 0
 
     @property
     def hit_rate(self) -> float:
@@ -141,8 +152,12 @@ def generate(programs: CapturedProgram, model: Model, params, batch: dict,
     replay of the prefill graph of this B, then ``max_new - 1`` replays of
     its decode graph, capturing both on first use. Returns the decode
     program's state: ``out`` (B, max_new) int32 tokens on the device,
-    ``start`` (kv_len after prefill), and with ``finite`` a device flag
-    ANDing whether every step's logits were finite. Under a mesh
+    ``reached`` (2,) int32, the experts the MoE layers reached in the
+    prefill and in the decode steps (each layer's distinct experts, summed
+    over the layers and the steps), ``host`` the one buffer holding both
+    (``out`` flat, then ``reached``), ``start`` (kv_len after prefill),
+    and with ``finite`` a device flag ANDing whether every step's logits
+    were finite. Under a mesh
     ``batch["tokens"]`` is the global prompt, of which this rank takes its
     rows (``Model.rows``), any other entry is this rank's rows, and the
     state is this rank's rows. With a ``TraceRecorder`` as ``obs`` every
@@ -160,20 +175,21 @@ def generate(programs: CapturedProgram, model: Model, params, batch: dict,
     B = tokens.shape[0]
 
     def prefill(toks):
+        host = torch.zeros(B * max_new + 2, dtype=torch.int32, device=model.device)
+        out, reached = host[:B * max_new].view(B, max_new), host[B * max_new:]
         logits, cache, kv_len = model.prefill(params, {"tokens": toks, **extra}, max_len,
-                                              **kw)
+                                              reached=reached[:1], **kw)
         tok = logits[:, :V].argmax(-1).to(torch.int32)
-        out = torch.empty((B, max_new), dtype=torch.int32, device=model.device)
         out[:, 0] = tok
         state = {"cache": cache, "kv_len": kv_len, "tok": tok, "out": out,
-                 "start": kv_len.clone()}
+                 "reached": reached, "host": host, "start": kv_len.clone()}
         if finite:
             state["finite"] = torch.isfinite(logits[:, :V]).all()
         return state
 
     def decode():
         logits, _, kv_len = model.decode_step(params, state["cache"], state["tok"],
-                                              state["kv_len"])
+                                              state["kv_len"], reached=state["reached"][1:])
         tok = logits[:, :V].argmax(-1).to(torch.int32)
         # kv_len now counts the cached positions: this token is column kv_len - start
         state["out"].scatter_(1, (kv_len - state["start"]).long()[:, None], tok[:, None])
@@ -262,7 +278,8 @@ class ServingEngine:
     def _generate(self, params, tokens: np.ndarray) -> np.ndarray:
         """Prefill, then greedy decode: (B, S) int32 prompt tokens -> (B,
         new) tokens as numpy, copied to the host once, after the last
-        step (``generate``)."""
+        step (``generate``), with the experts the MoE layers reached, which
+        ``EngineStats`` sums."""
         if params is not self._program_params:
             self.programs.clear()
             self._program_params = params
@@ -276,14 +293,20 @@ class ServingEngine:
     def _run(self, params, tokens: np.ndarray) -> np.ndarray:
         state = generate(self.programs, self.model, params, {"tokens": tokens},
                          self._max_len, self.max_new, obs=self.obs)
-        out = state["out"]
         if self.model.meshed:           # every rank's rows, on every rank
             from repro_torch.launch.sharding import batch_spec
             dist = self.model.dist
-            out = coll.gather_value(out, 0, dist, batch_spec(dist, tokens.shape[0]))
-        out = out.cpu().numpy()
+            out = coll.gather_value(state["out"], 0, dist, batch_spec(dist, tokens.shape[0]))
+            out, reached = out.cpu().numpy(), (0, 0)
+        else:                           # the tokens and the expert counters, one copy
+            host = state["host"].cpu().numpy()
+            n = state["out"].numel()
+            out = host[:n].reshape(state["out"].shape)
+            reached = (int(host[n]), int(host[n + 1]))
         if self.obs is not None:        # the copy drained the stream
             self.obs.sync_point()
+        self.stats.experts_prefill += reached[0]
+        self.stats.experts_decode += reached[1]
         return out
 
     def follow(self) -> list[np.ndarray]:
@@ -368,8 +391,11 @@ class ServingEngine:
             for j, i in enumerate(misses):
                 p = batch[i].prompt_tokens[:self.prompt_len]
                 toks[j, :len(p)] = p
-            with self._span("model_generate", batch=len(misses)):
+            with self._span("model_generate", batch=len(misses)) as span:
+                pre, dec = self.stats.experts_prefill, self.stats.experts_decode
                 out = self._generate(self.params, toks)
+                span.set(experts_prefill=self.stats.experts_prefill - pre,
+                         experts_decode=self.stats.experts_decode - dec)
             texts = ["tok:" + ",".join(map(str, out[j]))
                      for j in range(len(misses))]
             # one batched write-back for every miss in this step
