@@ -725,7 +725,8 @@ class SemanticCache:
         # Span "write": the store pass + index pass (store put retries
         # charge their backoff inside this span); its ``index_add_ms`` is
         # the index pass alone (the host graph wiring) on the recorder's
-        # clock.
+        # clock, and under hnsw ``index_expansions`` / ``index_scored`` that
+        # pass's work (the index's ``build_stats``).
         with self._span("write", items=len(pending)) as span:
             created_at = self.clock.now()
             docs = []
@@ -746,11 +747,16 @@ class SemanticCache:
             order = [p_i for p_i, _, _ in pending]
             # The index owns the category table (slot_category aliases it).
             t_add = self.obs.clock.now() if self.obs is not None else 0.0
+            work = dict(getattr(self.index, "build_stats", {}))
             slots = self.index.add_batch(
                 embeddings[order],
                 np.asarray([cid for _, cid, _ in pending], np.int32))
             if self.obs is not None:
                 span.set(index_add_ms=(self.obs.clock.now() - t_add) * 1e3)
+                if work:
+                    st = self.index.build_stats
+                    span.set(index_expansions=st["expansions"] - work["expansions"],
+                             index_scored=st["scored"] - work["scored"])
             for (p_i, _, _), slot, doc in zip(pending, slots, docs):
                 slot = int(slot)
                 self.slot_inserted[slot] = now

@@ -55,6 +55,7 @@ host state, so both packages search the same graph.
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import math
 from dataclasses import dataclass
 
@@ -759,6 +760,7 @@ class HNSWIndex(DeviceResidentIndex):
         self._free: list[int] = []
         self._entries_cache: np.ndarray | None = None
         self._entries_version = -1
+        self.build_stats = {"inserts": 0, "expansions": 0, "scored": 0}
         self._init_residency(self.p.emb_dtype, device)
 
     # -- basic bookkeeping ---------------------------------------------------
@@ -784,64 +786,127 @@ class HNSWIndex(DeviceResidentIndex):
 
     # -- host greedy search helpers -------------------------------------------
     def _greedy_descend(self, q: np.ndarray, entry: int, level: int) -> int:
-        """Greedy 1-best descent at one level (used above the target level)."""
+        """Greedy 1-best descent at one level (used above the target level),
+        counted in ``build_stats``."""
         cur = entry
         cur_sim = float(q @ self.emb[cur])
-        improved = True
         nbrs = self.neighbors[level]
-        while improved:
-            improved = False
+        steps, scored = 0, 1
+        while True:
             nb = nbrs[cur]
             nb = nb[nb != INVALID]
             if nb.size == 0:
                 break
+            steps += 1
+            scored += nb.size
             sims = self.emb[nb] @ q
             j = int(np.argmax(sims))
-            if sims[j] > cur_sim:
-                cur_sim = float(sims[j])
-                cur = int(nb[j])
-                improved = True
+            if not sims[j] > cur_sim:
+                break
+            cur_sim = float(sims[j])
+            cur = int(nb[j])
+        self.build_stats["expansions"] += steps
+        self.build_stats["scored"] += scored
         return cur
 
     def _search_level(self, q: np.ndarray, entries: list[int], level: int,
-                      ef: int) -> tuple[np.ndarray, np.ndarray]:
-        """Best-first search at one level. Returns (ids, sims) sorted desc."""
-        nbrs = self.neighbors[level]
+                      ef: int, stats: dict | None = None
+                      ) -> tuple[np.ndarray, np.ndarray]:
+        """Best-first search at one level. Returns (ids, sims) sorted desc.
+
+        The reference's algorithm, step for step and score for score, on
+        heaps. Every node entered carries its arrival number, its place in
+        the reference's candidate and result lists: the candidate heap
+        pops the highest score, the earliest arrival among equals (the
+        first maximum ``np.argmax`` takes), and the result min-heap evicts
+        the lowest, the earliest arrival among equals (``np.argmin``'s).
+        INVALID starts out visited, so one pass over a row as a list drops
+        both. Each expansion scores its unvisited neighbours with one
+        product, the reference's operands in its order. The results return
+        in arrival order, sorted by the reference's ``np.argsort`` over the
+        array its list gives (float32 while only entries remain, float64
+        once an accepted score is among them), so equal scores come out in
+        its order too."""
+        nbrs, emb = self.neighbors[level], self.emb
         visited = set(entries)
-        cand_ids = list(entries)
-        cand_sims = list(self.emb[entries] @ q)
-        # results kept as parallel arrays, pruned to ef
-        res_ids = list(cand_ids)
-        res_sims = list(cand_sims)
-        while cand_ids:
-            j = int(np.argmax(cand_sims))
-            c_sim = cand_sims.pop(j)
-            c = cand_ids.pop(j)
-            worst = min(res_sims) if len(res_sims) >= ef else -np.inf
-            if c_sim < worst:
+        visited.add(INVALID)
+        n0 = len(entries)
+        res = [(s, a, int(i)) for a, (i, s)
+               in enumerate(zip(entries, (emb[entries] @ q).tolist()))]
+        cand = [(-s, a, i) for s, a, i in res]
+        heapq.heapify(res)
+        heapq.heapify(cand)
+        arrival, expansions, scored = n0, 0, n0
+        full = n0 >= ef     # stays so: once full, every push evicts one
+        while cand:
+            neg_c, _, c = heapq.heappop(cand)
+            if full and -neg_c < res[0][0]:
                 break
-            nb = nbrs[c]
-            nb = nb[nb != INVALID]
-            nb = [int(x) for x in nb if int(x) not in visited]
+            expansions += 1
+            nb = [x for x in nbrs[c].tolist() if x not in visited]
             if not nb:
                 continue
             visited.update(nb)
-            sims = self.emb[nb] @ q
-            for node, s in zip(nb, sims):
-                if len(res_sims) < ef or s > min(res_sims):
-                    res_ids.append(node)
-                    res_sims.append(float(s))
-                    cand_ids.append(node)
-                    cand_sims.append(float(s))
-                    if len(res_sims) > ef:
-                        k = int(np.argmin(res_sims))
-                        res_ids.pop(k)
-                        res_sims.pop(k)
-        order = np.argsort(res_sims)[::-1]
-        return (np.asarray(res_ids, np.int32)[order],
-                np.asarray(res_sims, np.float32)[order])
+            scored += len(nb)
+            for node, s in zip(nb, (emb.take(nb, 0) @ q).tolist()):
+                if not full:
+                    heapq.heappush(res, (s, arrival, node))
+                    full = len(res) >= ef
+                elif s > res[0][0]:
+                    heapq.heapreplace(res, (s, arrival, node))
+                else:
+                    continue
+                heapq.heappush(cand, (-s, arrival, node))
+                arrival += 1
+        if stats is not None:
+            stats["expansions"] += expansions
+            stats["scored"] += scored
+        res.sort(key=lambda r: r[1])
+        sims = np.array([r[0] for r in res],
+                        np.float64 if res and res[-1][1] >= n0 else np.float32)
+        order = np.argsort(sims)[::-1]
+        return (np.array([r[2] for r in res], np.int32)[order],
+                sims.astype(np.float32)[order])
 
     # -- insertion -------------------------------------------------------------
+    def _wire(self, l: int, slot: int, chosen: np.ndarray, m: int) -> None:
+        """Bidirectional wiring at level ``l``: each chosen neighbour's row
+        takes ``slot`` in its first empty place or, when full, keeps the
+        closest ``m`` of row + slot by the reference's pruning product and
+        ``np.argsort``. Distinct neighbours touch distinct rows, so the
+        rows with room take the slot together and the full rows' orders
+        are sorted together, row by row. A neighbour chosen twice (a row
+        can name a reused slot twice) goes row after row, as in the
+        reference."""
+        nbrs, emb = self.neighbors[l], self.emb
+        ids = chosen.tolist()
+        if len(set(ids)) < len(ids):
+            for nb in ids:
+                row = nbrs[nb]
+                empty = np.where(row == INVALID)[0]
+                if empty.size:
+                    row[empty[0]] = slot
+                else:
+                    cand = np.concatenate([row, [slot]])
+                    sims = emb[cand] @ emb[nb]
+                    nbrs[nb] = cand[np.argsort(sims)[::-1][:m]]
+            return
+        rows = nbrs[chosen]
+        empty = rows == INVALID
+        room = empty.any(axis=1)
+        nbrs[chosen[room], empty[room].argmax(axis=1)] = slot
+        full = chosen[~room]
+        if not full.size:
+            return
+        cand = np.empty((full.size, rows.shape[1] + 1), np.int64)
+        cand[:, :-1] = rows[~room]
+        cand[:, -1] = slot
+        sims = np.empty(cand.shape, np.float32)
+        for i, nb in enumerate(full.tolist()):
+            sims[i] = emb.take(cand[i], 0) @ emb[nb]
+        order = np.argsort(sims, axis=1)[:, ::-1][:, :m]
+        nbrs[full] = np.take_along_axis(cand, order, axis=1)
+
     def add(self, vec: np.ndarray, category: int = -1) -> int:
         vec = np.asarray(vec, np.float32)
         slot = self._alloc_slot()
@@ -855,6 +920,7 @@ class HNSWIndex(DeviceResidentIndex):
         for l in range(len(self.neighbors)):
             self.neighbors[l][slot] = INVALID
         self._dirty.add(slot)
+        self.build_stats["inserts"] += 1
 
         if self.entry_point == INVALID:
             self.entry_point = slot
@@ -867,23 +933,14 @@ class HNSWIndex(DeviceResidentIndex):
             cur = self._greedy_descend(vec, cur, l)
         entries = [cur]
         for l in range(min(lvl, self.max_level), -1, -1):
-            ids, _sims = self._search_level(vec, entries, l, self.p.ef_construction)
+            ids, _sims = self._search_level(
+                vec, entries, l, self.p.ef_construction, self.build_stats)
             m = self.p.M0 if l == 0 else self.p.M
             chosen = ids[:m]
             self.neighbors[l][slot, :len(chosen)] = chosen
-            # bidirectional wiring with pruning to closest-m
-            for nb in chosen:
-                row = self.neighbors[l][nb]
-                empty = np.where(row == INVALID)[0]
-                if empty.size:
-                    row[empty[0]] = slot
-                else:
-                    cand = np.concatenate([row, [slot]])
-                    sims = self.emb[cand] @ self.emb[nb]
-                    keep = cand[np.argsort(sims)[::-1][:m]]
-                    self.neighbors[l][nb] = keep
+            self._wire(l, slot, chosen, m)
             if l == 0:     # only the level-0 graph is device-visible
-                self._dirty.update(int(nb) for nb in chosen)
+                self._dirty.update(chosen.tolist())
             entries = list(ids[:1]) if len(ids) else entries
 
         if lvl > self.max_level:
@@ -897,9 +954,15 @@ class HNSWIndex(DeviceResidentIndex):
         """Insert a batch of vectors. Returns the (B,) assigned slot ids.
 
         Graph wiring stays host-sequential (HNSW insertion is inherently
-        so), but the whole batch's touched rows coalesce in the delta log,
-        so the device pays ONE scatter flush on the next search instead of
-        B full-table uploads.
+        so): one insert after another, drawing the reference's levels. The
+        wiring is the reference's algorithm with the same scores, its own
+        numpy products on the same operands, rebuilt around heaps and one
+        visited set that drops INVALID too, so it builds the reference's
+        graph bit for bit. The whole batch's touched rows coalesce in the
+        delta log, so the device pays ONE scatter flush on the next search
+        instead of B full-table uploads. ``build_stats`` counts the work:
+        inserts, expansions (candidates whose row was read, greedy steps
+        included) and rows scored against the inserted vectors.
         """
         return _batched_add(self, vecs, categories)
 

@@ -23,6 +23,16 @@ DIM = 64
 ATOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread while this module runs (many tiny CPU
+    ops under pytest-xdist)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _unit(rng, n, d=DIM):
     x = rng.standard_normal((n, d)).astype(np.float32)
     return x / np.linalg.norm(x, axis=1, keepdims=True)
@@ -228,9 +238,9 @@ def test_delta_flush_is_one_flush_call_with_reference_sync_stats(monkeypatch, ki
 
 
 def test_host_control_plane_draws_the_same_numbers():
-    """Incremental insertion and bulk_build are the reference's numpy code:
-    the same seed gives the same levels, wiring and entry point, and
-    host searches agree exactly."""
+    """Incremental insertion and bulk_build build the reference's graph bit
+    for bit: the same seed gives the same levels, wiring and entry point,
+    and host searches agree exactly."""
     rng = np.random.default_rng(5)
     vecs, cats = _unit(rng, 80), rng.integers(0, 3, 80).astype(np.int32)
     r = jh.HNSWIndex(DIM, 128, params=jh.HNSWParams(**_small()), seed=9)
@@ -330,3 +340,84 @@ def test_reference_state_round_trip_keeps_rng(rng):
     assert np.array_equal(r.level, t.level)
     assert np.array_equal(r.neighbors[0], t.neighbors[0])
     assert dataclasses.asdict(r.p) == dataclasses.asdict(t.p)
+
+
+def _insert_script(case: str):
+    """(params, capacity, seed, steps) of a build: a step is ("add",
+    vecs, cats) or ("remove", count)."""
+    rng = np.random.default_rng({"interleave": 31, "ties": 32, "one_row": 33}[case])
+    steps = []
+    if case == "interleave":    # 1,500 inserts, freed slots reused
+        vecs, cats = _unit(rng, 1500), rng.integers(0, 4, 1500).astype(np.int32)
+        a = 0
+        while a < len(vecs):
+            b = min(a + int(rng.integers(1, 14)), len(vecs))
+            steps.append(("add", vecs[a:b], cats[a:b]))
+            if a > 40 and rng.random() < 0.5:
+                steps.append(("remove", int(rng.integers(1, 7))))
+            a = b
+        return dict(M=8, M0=16, ef_construction=32), 1200, 4, steps
+    if case == "ties":          # 6 copies of each row: exact ties between nodes
+        vecs = np.repeat(_unit(rng, 40), 6, axis=0)
+        vecs = vecs[rng.permutation(len(vecs))]
+        for a in range(0, len(vecs), 7):
+            steps.append(("add", vecs[a:a + 7], np.zeros(len(vecs[a:a + 7]), np.int32)))
+        return _small(), 512, 6, steps
+    # rows of two neighbours: many expansions score a 1-row neighbour list
+    vecs = _unit(rng, 160)
+    for a in range(0, len(vecs), 3):
+        steps.append(("add", vecs[a:a + 3], None))
+        if a % 30 == 27:
+            steps.append(("remove", 2))
+    return dict(M=2, M0=2, ef_construction=4), 256, 7, steps
+
+
+def _run_script(index, steps, seed):
+    """Apply a build script; returns what every step left behind."""
+    rng, live, seen = np.random.default_rng(seed), [], []
+    for step in steps:
+        if step[0] == "add":
+            slots = index.add_batch(step[1], step[2])
+            live.extend(int(s) for s in slots)
+            seen.append(("add", np.array(slots), sorted(index._dirty), index._version,
+                         index.entry_point, index.max_level))
+        else:
+            for _ in range(min(step[1], len(live) - 1)):
+                index.remove(live.pop(int(rng.integers(len(live)))))
+            seen.append(("remove", sorted(index._dirty), index._version,
+                         index.entry_point, index.max_level))
+    return seen
+
+
+@pytest.mark.parametrize("case", ["interleave", "ties", "one_row"])
+@pytest.mark.parametrize("emb_dtype", ["float32", "int8"])
+def test_insert_builds_the_reference_graph_bit_for_bit(case, emb_dtype):
+    """The port's heap-and-set insertion against the reference's list code,
+    both built from empty through ``add_batch``: (a) 1,500 inserts in
+    batches of 1–13 with removes, so freed slots are reused (a row may
+    then name a slot twice); (b) every row six times, so distinct nodes
+    tie exactly; (c) rows of two, so expansions score one-row lists.
+    After every step the returned slots, the dirty log, ``_version``, the
+    entry point and the top level agree; at the end every ``neighbors``
+    level and ``level``. A second build of the port counts the same
+    ``build_stats``."""
+    kw, cap, seed, steps = _insert_script(case)
+    r = jh.HNSWIndex(DIM, cap, params=jh.HNSWParams(**kw, emb_dtype=emb_dtype),
+                     seed=seed)
+    builds = [th.HNSWIndex(DIM, cap, params=th.HNSWParams(**kw, emb_dtype=emb_dtype),
+                           seed=seed, device="cpu") for _ in range(2)]
+    want = _run_script(r, steps, seed)
+    for t in builds:
+        got = _run_script(t, steps, seed)
+        assert len(got) == len(want)
+        for k, (a, b) in enumerate(zip(want, got)):
+            assert a[0] == b[0] and all(np.array_equal(x, y) for x, y in zip(a[1:], b[1:])), k
+        assert np.array_equal(r.level, t.level) and len(r.neighbors) == len(t.neighbors)
+        for a, b in zip(r.neighbors, t.neighbors):
+            assert np.array_equal(a, b)
+        if emb_dtype == "int8":
+            assert np.array_equal(r.emb_q, t.emb_q) and np.array_equal(r.emb_scale, t.emb_scale)
+    first, second = (t.build_stats for t in builds)
+    assert first == second and first["inserts"] == sum(
+        len(s[1]) for s in steps if s[0] == "add")
+    assert first["scored"] >= first["expansions"] > 0

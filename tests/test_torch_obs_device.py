@@ -236,3 +236,31 @@ def test_write_span_carries_index_add_ms(index_kind, rng):
     write = [sp for sp in rec.spans if sp.stage == "write"]
     assert len(write) == 1 and write[0].attrs["index_add_ms"] == 125.0
     assert write[0].dur_ms >= 125.0
+
+
+@pytest.mark.parametrize("index_kind", ["flat", "hnsw"])
+def test_write_span_carries_the_index_pass_work(index_kind, rng):
+    """Under hnsw the ``write`` span carries its batch's ``index_expansions``
+    and ``index_scored`` (``build_stats`` across the index pass): every
+    expanded candidate was scored first, so scored ≥ expansions. A flat
+    index wires no graph, and its span carries neither."""
+    rec = TraceRecorder(SimClock(4.0))
+    cache = _cache(rec, index_kind)
+    embs = rng.standard_normal((12, 384)).astype(np.float32)
+    embs /= np.linalg.norm(embs, axis=1, keepdims=True)
+    for a in (0, 6):
+        cache.insert_batch(embs[a:a + 6], ["code_generation"] * 6,
+                           [f"q{a + j}" for j in range(6)], ["r"] * 6)
+    write = [sp for sp in rec.spans if sp.stage == "write"]
+    assert len(write) == 2
+    if index_kind == "flat":
+        assert all("index_expansions" not in sp.attrs and "index_scored" not in sp.attrs
+                   for sp in write)
+        return
+    for sp in write:
+        assert sp.attrs["index_expansions"] > 0
+        assert sp.attrs["index_scored"] >= sp.attrs["index_expansions"]
+    st = cache.index.build_stats
+    assert st["inserts"] == 12
+    assert sum(sp.attrs["index_expansions"] for sp in write) == st["expansions"]
+    assert sum(sp.attrs["index_scored"] for sp in write) == st["scored"]
