@@ -36,10 +36,8 @@ Phases (any failure exits non-zero and prints no result):
              at (a) random ids, (b) the main path's entry set (8 ids from
              the first 3,000 rows, the same for all 8 queries, padded to
              32 with INVALID) and (c) every id INVALID (the no-row
-             floor), each bit for bit and timed beside (d) the earlier
-             design (``gather_scores_serial``) on the same inputs, and
-             held at int8 d 388 and at d 1,024 with B 40 (three
-             query groups); scatter_rows as one flush launch over the
+             floor), timed at each, and held at int8 d 388 and at d 1,024
+             with B 40 (three query groups); scatter_rows as one flush launch over the
              hnsw fp32 and int8 table sets at R 8 and 64, timed beside one
              launch per table; flat_topk also at the main path's occupancy, a 3,000-row
              valid prefix of 1,048,576, and with exact ties across groups,
@@ -635,18 +633,15 @@ def hold_hop(torch, fh, gs, table, nbrs, meta, variant, scales, what: str) -> fl
     require(err <= SCORE_ATOL, f"frontier_hop {what}: err {err}")
     require(torch.equal(gs.gather_scores(table, ids_k, q, scales), route_k),
             f"gather_scores and frontier_hop differ ({what})")
-    earlier = fh.frontier_hop_serial(table, nbrs, meta, fr, q, qc, done, scales)
-    require(all(torch.equal(x, y) for x, y in zip(earlier, (ids_k, route_k, res_k))),
-            f"frontier_hop and its earlier design differ ({what})")
     return err
 
 
 def time_hop(torch, fh, table, nbrs, meta, variants, scales, err) -> dict:
-    """frontier_hop's numbers over ``variants``: kernel, earlier design
-    (``frontier_hop_serial``) and plain times, and the bound from this
-    data (each unique live candidate row and its meta word, the neighbor
-    rows of live frontier lanes, the frontier, queries, categories, done
-    flags and the three outputs; 2·d operations per live candidate).
+    """frontier_hop's numbers over ``variants``: kernel and plain times, and
+    the bound from this data (each unique live candidate row and its meta
+    word, the neighbor rows of live frontier lanes, the frontier, queries,
+    categories, done flags and the three outputs; 2·d operations per live
+    candidate).
     ``gather_ms``, for the log only, is one ``index_select`` of the same
     live candidate rows: what PyTorch's own gather of the rows the hop
     must read costs (it also writes them out)."""
@@ -666,10 +661,7 @@ def time_hop(torch, fh, table, nbrs, meta, variants, scales, err) -> dict:
     fns = [lambda v=v: fh.frontier_hop(table, nbrs, meta, *v[:4], scales) for v in variants]
     plain = [lambda v=v: fh.frontier_hop_plain(table, nbrs, meta, *v[:4], scales)
              for v in variants]
-    earlier = [lambda v=v: fh.frontier_hop_serial(table, nbrs, meta, *v[:4], scales)
-               for v in variants]
-    return dict(max_abs_err=err, ms=graph_ms(torch, fns), earlier_ms=graph_ms(torch, earlier),
-                plain_ms=graph_ms(torch, plain),
+    return dict(max_abs_err=err, ms=graph_ms(torch, fns), plain_ms=graph_ms(torch, plain),
                 bound_ms=b_hop[0], bound_by=b_hop[1], library_ms=None,
                 bytes=statistics.mean(nbytes),
                 gather_ms=graph_ms(torch, [lambda r=r: table.index_select(0, r)
@@ -835,9 +827,8 @@ def gather_bound(sets, cats, scales, d: int, masked: bool) -> tuple[float, str]:
 def hold_gather(torch, gs, table, scales, cats, sets, what: str) -> dict:
     """Both entries on ``sets`` of (idx, q, qc): against their plain versions
     (within SCORE_ATOL, -inf where they have it), the masked scores equal
-    to gather_scores' where the category test passes, and both equal bit
-    for bit to the earlier design (``gather_scores_serial``). Returns the
-    largest error of each entry."""
+    to gather_scores' where the category test passes. Returns the largest
+    error of each entry."""
     errs = {"gather_scores": 0.0, "gather_scores_masked": 0.0}
     for idx, q, qc in sets:
         g_k = gs.gather_scores(table, idx, q, scales)
@@ -851,10 +842,6 @@ def hold_gather(torch, gs, table, scales, cats, sets, what: str) -> dict:
         passed = torch.isfinite(m_k)
         require(torch.equal(m_k[passed], g_k[passed]),
                 f"gather_scores_masked and gather_scores differ ({what})")
-        require(torch.equal(gs.gather_scores_serial(table, idx, q, scales), g_k),
-                f"gather_scores and its earlier design differ ({what})")
-        require(torch.equal(gs.gather_scores_serial(table, idx, q, scales, cats, qc), m_k),
-                f"gather_scores_masked and its earlier design differ ({what})")
     for name, err in errs.items():
         require(err <= SCORE_ATOL, f"{name} {what}: err {err}")
     return errs
@@ -863,10 +850,8 @@ def hold_gather(torch, gs, table, scales, cats, sets, what: str) -> dict:
 def check_gather(torch, gs, table, scales, cats, gather_sets, dtype) -> dict:
     """gather_scores and gather_scores_masked on check_kernels' three cases
     ("random" (a), "entry_set" (b), "floor" (c)): held (hold_gather), then
-    timed with the earlier design (d) on the same inputs: ``ms``,
-    ``earlier_ms``, ``plain_ms`` and the bound at (a); ``entry_set_ms``,
-    ``earlier_entry_set_ms`` and ``entry_set_bound_ms`` at (b); ``floor_ms``
-    and ``earlier_floor_ms`` at (c)."""
+    timed: ``ms``, ``plain_ms`` and the bound at (a); ``entry_set_ms`` and
+    ``entry_set_bound_ms`` at (b); ``floor_ms`` at (c)."""
     d = table.shape[1]
     errs = {}
     for label, sets in gather_sets.items():
@@ -876,11 +861,9 @@ def check_gather(torch, gs, table, scales, cats, gather_sets, dtype) -> dict:
     calls = {
         "gather_scores": (
             lambda s: gs.gather_scores(table, s[0], s[1], scales),
-            lambda s: gs.gather_scores_serial(table, s[0], s[1], scales),
             lambda s: gs.gather_scores_plain(table, s[0], s[1], scales)),
         "gather_scores_masked": (
             lambda s: gs.gather_scores_masked(table, s[0], s[1], cats, s[2], scales),
-            lambda s: gs.gather_scores_serial(table, s[0], s[1], scales, cats, s[2]),
             lambda s: gs.gather_scores_masked_plain(table, s[0], s[1], cats, s[2], scales)),
     }
 
@@ -888,23 +871,18 @@ def check_gather(torch, gs, table, scales, cats, gather_sets, dtype) -> dict:
         return graph_ms(torch, [lambda s=s: fn(s) for s in gather_sets[label]])
 
     out = {}
-    for name, (kern, earlier, plain) in calls.items():
+    for name, (kern, plain) in calls.items():
         masked = name == "gather_scores_masked"
         b_a = gather_bound(gather_sets["random"], cats, scales, d, masked)
         b_b = gather_bound(gather_sets["entry_set"], cats, scales, d, masked)
         row = dict(max_abs_err=errs[name], ms=timed(kern, "random"),
-                   earlier_ms=timed(earlier, "random"), plain_ms=timed(plain, "random"),
-                   bound_ms=b_a[0], bound_by=b_a[1], library_ms=None,
-                   entry_set_ms=timed(kern, "entry_set"),
-                   earlier_entry_set_ms=timed(earlier, "entry_set"),
-                   entry_set_bound_ms=b_b[0], floor_ms=timed(kern, "floor"),
-                   earlier_floor_ms=timed(earlier, "floor"))
+                   plain_ms=timed(plain, "random"), bound_ms=b_a[0], bound_by=b_a[1],
+                   library_ms=None, entry_set_ms=timed(kern, "entry_set"),
+                   entry_set_bound_ms=b_b[0], floor_ms=timed(kern, "floor"))
         out[(name, dtype)] = row
-        log(f"kernels: {name} {dtype} random ids (a) {row['ms']:.6f} ms [earlier "
-            f"{row['earlier_ms']:.6f}], entry set (b) {row['entry_set_ms']:.6f} [earlier "
-            f"{row['earlier_entry_set_ms']:.6f}], no-row floor (c) {row['floor_ms']:.6f} "
-            f"[earlier {row['earlier_floor_ms']:.6f}]; bound (a) {b_a[0]:.7f} (b) "
-            f"{b_b[0]:.7f} ms, {b_a[1]}: {row}")
+        log(f"kernels: {name} {dtype} random ids (a) {row['ms']:.6f} ms, entry set (b) "
+            f"{row['entry_set_ms']:.6f}, no-row floor (c) {row['floor_ms']:.6f}; bound (a) "
+            f"{b_a[0]:.7f} (b) {b_b[0]:.7f} ms, {b_a[1]}: {row}")
     return out
 
 
@@ -944,9 +922,9 @@ def gather_edge_paths(torch, gs, gen, dev, quantize) -> None:
         over = sets[0][0].clone()
         over[:, ::5] = n + 5
         g = gs.gather_scores(table, over, sets[0][1], scales)
-        require(bool(torch.isneginf(g[:, ::5]).all()) and torch.equal(
-            g, gs.gather_scores_serial(table, over, sets[0][1], scales)),
-            f"gather_scores {label}: ids >= N must score -inf")
+        want = gs.gather_scores(table, sets[0][0], sets[0][1], scales)
+        want[:, ::5] = -torch.inf
+        require(torch.equal(g, want), f"gather_scores {label}: ids >= N must score -inf")
         log(f"kernels: gather_scores(_masked) {label} N={n} B={b} K={F}: random ids, the "
             f"entry set and ids shared across query groups held, max |err| {errs}")
 
@@ -4187,10 +4165,7 @@ def check_train_resume(torch) -> dict:
 def run_train_phase(torch, dev, counters) -> dict:
     """Phase 10: the kernels' Functions, the 2-layer card-vs-CPU checks,
     the full-width runs, jamba's period's gradients, one MoE layer's
-    gradients against the dense path and the resume check. Also logs
-    whether the card's ``torch._grouped_mm`` differentiates by itself, and
-    why not (the port's ``GroupedMmFn`` does not use that backward)."""
-    from repro_torch.models.moe import grouped_mm_has_backward
+    gradients against the dense path and the resume check."""
     out = {"kernels": check_train_kernels(torch, dev)}
     for arch in TRAIN_MODELS:
         out[f"model {arch}"] = check_train_model(torch, arch)
@@ -4199,10 +4174,6 @@ def run_train_phase(torch, dev, counters) -> dict:
     out["moe_grads"] = check_moe_grads(torch)
     out["moe_backward_paths"] = grouped_backward_paths(torch)
     out["resume"] = check_train_resume(torch)
-    has, why = grouped_mm_has_backward("cuda")
-    log(f"train: torch._grouped_mm differentiates by itself on this card's torch "
-        f"{torch.__version__} (two groups of 8 rows, 16 x 16, the gradient of a sum): "
-        f"{has}{f' ({why})' if why else ''}")
     return out
 
 
@@ -5650,9 +5621,9 @@ def main(argv: list[str]) -> int:
     numbers.update(trained["kernels"])   # the training shapes ride under "variants"
     numbers.update(distributed["kernels"])   # and a rank's local heads
     numbers.update(dist_served["kernels"])   # sequence blocks, a rank's channels
-    fields = ("max_abs_err", "ms", "earlier_ms", "plain_ms", "bound_ms", "bound_by",
-              "library_ms", "entry_set_ms", "earlier_entry_set_ms", "entry_set_bound_ms",
-              "floor_ms", "earlier_floor_ms", "per_table_ms", "splits", "chunk", "chunk_ms",
+    fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "entry_set_ms", "entry_set_bound_ms", "floor_ms", "per_table_ms", "splits",
+              "chunk", "chunk_ms",
               "grad_rel_err", "fd_rel_err", "fwd_bwd_ms", "plain_fwd_bwd_ms",
               "library_fwd_bwd_ms")
     rows = []

@@ -47,9 +47,7 @@ SCORE_ATOL = 1e-4               # fp32 scores of unit rows: kernel and plain sum
 # Each entry function's largest block (threads), from its source.
 MAX_THREADS = {
     "frontier_hop_kernel": 256,         # kHopThreads
-    "frontier_hop_serial_kernel": 256,  # kHopThreads
     "gather_scores_kernel": 512,        # kGroupThreads: up to 16 query warps
-    "gather_scores_serial_kernel": 256,  # kGatherThreads
     "flat_topk_partial_kernel": 128,    # 32 * kWarps
     "flat_topk_reduce_kernel": 256,     # 32 * warps_per_block
     "scatter_rows_kernel": 256,         # kScatterThreads

@@ -60,21 +60,6 @@ __device__ __forceinline__ float lane_dot_i8(const int8_t* __restrict__ row,
   return acc;
 }
 
-// Score of table row `row_id` against query `q`, called by all 32 lanes of
-// a warp. `table` is fp32 (scales == nullptr) or int8 with per-row scales.
-__device__ __forceinline__ float warp_row_score(const void* __restrict__ table,
-                                                const float* __restrict__ scales,
-                                                long long row_id,
-                                                const float* __restrict__ q,
-                                                int d, int lane) {
-  if (scales == nullptr) {
-    const float* row = static_cast<const float*>(table) + row_id * d;
-    return warp_sum(lane_dot_f32(row, q, d, lane));
-  }
-  const int8_t* row = static_cast<const int8_t*>(table) + row_id * d;
-  return warp_sum(lane_dot_i8(row, q, d, lane)) * scales[row_id];
-}
-
 // One step of lane_dot_f32 / lane_dot_i8, split so that a row chunk can
 // come from somewhere else than the table (gather_scores stages a shared
 // row in shared memory): chunk_f32 converts a chunk as the lane_dot_*
@@ -82,7 +67,8 @@ __device__ __forceinline__ float warp_row_score(const void* __restrict__ table,
 // adds its product with a query chunk to acc by four fmaf in x, y, z, w
 // order. A lane that starts from acc = 0 and calls fma_chunk for its chunks
 // lane, lane + 32, ... in turn, then warp_sum (times the row's scale on
-// int8 rows), scores the pair bit for bit as warp_row_score does.
+// int8 rows), walks the order of lane_dot_* + warp_sum, so it scores the
+// pair bit for bit as frontier_hop does.
 __device__ __forceinline__ float4 chunk_f32(float4 a) { return a; }
 
 __device__ __forceinline__ float4 chunk_f32(char4 a) {

@@ -46,11 +46,6 @@
 // four blocks share an SM and B=8, F=32 runs in one wave. Every row is
 // one bulk copy, so an SM's copies of a hop (about 50 rows) go through
 // its one copy engine in turn (PERF.md §6 has what that costs).
-//
-// frontier_hop_serial_kernel, below, is the earlier design (each warp
-// walks its candidates one after another, loading rows straight from
-// global memory). No path runs it: chip_smoke.py times it beside this
-// kernel on the same inputs.
 #include "dot.cuh"
 
 namespace repro_torch {
@@ -279,42 +274,6 @@ __global__ void __launch_bounds__(kHopThreads)
   }
 }
 
-// The earlier design, timed by chip_smoke.py only: one block of 8 warps per
-// (b, f) lane, the query staged in shared memory, and each warp scoring
-// candidates m, m + 8, ... one after another with rows read straight from
-// global memory through warp_row_score (the same dot, the same bits).
-__global__ void frontier_hop_serial_kernel(const __grid_constant__ HopArgs a) {
-  extern __shared__ float4 q_smem4[];
-  float* q_s = reinterpret_cast<float*>(q_smem4);
-  const int b = blockIdx.x / a.F;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int fid = a.frontier[blockIdx.x];
-  const bool live = fid >= 0 && fid < a.n_rows && a.done[b] == 0;
-  if (live) {
-    const float* qb = a.q + static_cast<long long>(b) * a.d;
-    for (int i = threadIdx.x; i < a.d; i += blockDim.x) q_s[i] = qb[i];
-  }
-  __syncthreads();
-  const int qc = a.qcat[b];
-  const long long out_base = static_cast<long long>(blockIdx.x) * a.M;
-  for (int m = warp; m < a.M; m += kHopWarps) {
-    const int cid = live ? a.neighbors[static_cast<long long>(fid) * a.M + m] : kInvalid;
-    int id = kInvalid;
-    float route = -INFINITY, res = -INFINITY;
-    if (cid >= 0 && cid < a.n_rows) {
-      route = warp_row_score(a.emb, a.scales, cid, q_s, a.d, lane);
-      const int mw = a.meta[cid];
-      id = cid;
-      if (mw != kTombstone && (qc < 0 || mw == qc)) res = route;
-    }
-    if (lane == 0) {
-      a.ids_out[out_base + m] = id;
-      a.route_out[out_base + m] = route;
-      a.res_out[out_base + m] = res;
-    }
-  }
-}
-
 }  // namespace repro_torch
 
 extern "C" int frontier_hop_launch(const void* emb, const void* scales,
@@ -323,7 +282,7 @@ extern "C" int frontier_hop_launch(const void* emb, const void* scales,
                                    const void* qcat, const void* done,
                                    void* ids, void* route, void* res,
                                    long long n_rows, int d, int M, int B, int F,
-                                   int quant, int chunk, int serial, void* stream) {
+                                   int quant, int chunk, void* stream) {
   using namespace repro_torch;
   if (B <= 0 || F <= 0 || M <= 0) return static_cast<int>(cudaGetLastError());
   const int row_bytes = quant ? d : 4 * d;
@@ -360,10 +319,6 @@ extern "C" int frontier_hop_launch(const void* emb, const void* scales,
             chunk,
             n_chunks,
             row_bytes % 16 == 0 ? 1 : 0};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (serial)  // the earlier design: the query row only (d <= 12,288: 48 KB)
-    frontier_hop_serial_kernel<<<B * F, kHopThreads, 4 * d, s>>>(a);
-  else
-    frontier_hop_kernel<<<B * F, kHopThreads, L.total, s>>>(a);
+  frontier_hop_kernel<<<B * F, kHopThreads, L.total, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

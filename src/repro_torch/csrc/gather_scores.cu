@@ -32,13 +32,14 @@
 //   __match_any_sync) the other queries read it from there.
 // - Each warp scores its (row, query) pair in dot.cuh's order: lane l
 //   walks chunks l, l + 32, ... with fma_chunk, then warp_sum, then the
-//   int8 scale. That is warp_row_score's order, so the scores equal
-//   frontier_hop's bit for bit (both feed one beam merge).
+//   int8 scale. That is the order of frontier_hop's lane_dot_* + warp_sum,
+//   so the scores equal frontier_hop's bit for bit (both feed one beam
+//   merge).
 // - The masked entry loads the row's category beside the row, both off the
 //   id, and applies the test after: one dependent round trip saved against
-//   the earlier design (category, then row), at the price of a row read
-//   for a group whose queries all fail. A query that fails reads nothing
-//   from the staged row.
+//   loading the category first and the row after it, at the price of a row
+//   read for a group whose queries all fail. A query that fails reads
+//   nothing from the staged row.
 // - The first 4 chunks a lane needs (d <= 512 in fp32 and int8) are loaded
 //   in straight-line code, all in flight at once; wider rows loop over
 //   batches of 4.
@@ -46,11 +47,6 @@
 // The grid is K x ceil(B / group) blocks, group = min(16, B, 128 KB / row
 // slot) warps (32 blocks of 256 threads at the main path's shape, one
 // wave); a block's shared memory is a row slot per warp.
-//
-// gather_scores_serial_kernel, below, is the earlier design (one warp per
-// (b, k) pair; the id, then the category, then the row, one after the
-// other, each pair loading its own row). No path runs it: chip_smoke.py
-// times it beside this kernel on the same inputs.
 #include <algorithm>
 #include <type_traits>
 
@@ -58,8 +54,6 @@
 
 namespace repro_torch {
 
-constexpr int kGatherWarps = 8;              // the earlier design's warps a block
-constexpr int kGatherThreads = 32 * kGatherWarps;
 constexpr int kGroupWarps = 16;              // queries of a group, at most: one warp each
 constexpr int kGroupThreads = 32 * kGroupWarps;
 constexpr int kGatherSlotBytes = 128 * 1024; // a block's row slots, at most (fewer
@@ -204,35 +198,6 @@ cudaError_t launch_kernel(const GatherArgs& a, dim3 grid, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// The earlier design, timed by chip_smoke.py only: one warp per (b, k)
-// pair, 8 warps a block; the warp loads its id, then (masked) the query's
-// and the row's categories, then the row and the query through
-// warp_row_score. A row shared by several queries is loaded once by each.
-__global__ void gather_scores_serial_kernel(const void* __restrict__ table,
-                                            const float* __restrict__ scales,
-                                            const int* __restrict__ idx,
-                                            const float* __restrict__ q,
-                                            float* __restrict__ out,
-                                            long long n_rows, int d, int B, int K,
-                                            const int* __restrict__ slot_cat,
-                                            const int* __restrict__ qcat) {
-  const int lane = threadIdx.x & 31;
-  const long long pair =
-      static_cast<long long>(blockIdx.x) * kGatherWarps + (threadIdx.x >> 5);
-  if (pair >= static_cast<long long>(B) * K) return;
-  const int b = static_cast<int>(pair / K);
-  const int row = idx[pair];
-  bool ok = row >= 0 && row < n_rows;
-  if (ok && slot_cat != nullptr) {
-    const int qc = qcat[b];
-    ok = qc < 0 || slot_cat[row] == qc;
-  }
-  float s = -INFINITY;
-  if (ok)
-    s = warp_row_score(table, scales, row, q + static_cast<long long>(b) * d, d, lane);
-  if (lane == 0) out[pair] = s;
-}
-
 }  // namespace repro_torch
 
 namespace {
@@ -287,24 +252,4 @@ extern "C" int gather_scores_masked_launch(const void* table, const void* scales
                                            void* stream) {
   return launch_gather(table, scales, idx, q, out, n_rows, d, B, K, quant, slot_cat, qcat,
                        stream);
-}
-
-// The earlier design (no path calls it); slot_cat and qcat null = unmasked.
-extern "C" int gather_scores_serial_launch(const void* table, const void* scales,
-                                           const void* idx, const void* q,
-                                           const void* slot_cat, const void* qcat, void* out,
-                                           long long n_rows, int d, int B, int K, int quant,
-                                           void* stream) {
-  using namespace repro_torch;
-  const long long pairs = static_cast<long long>(B) * K;
-  if (pairs > 0) {
-    const unsigned blocks = static_cast<unsigned>((pairs + kGatherWarps - 1) / kGatherWarps);
-    gather_scores_serial_kernel<<<blocks, kGatherThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-        table, quant ? static_cast<const float*>(scales) : nullptr,
-        static_cast<const int*>(idx), static_cast<const float*>(q),
-        static_cast<float*>(out), n_rows, d, B, K, static_cast<const int*>(slot_cat),
-        static_cast<const int*>(qcat));
-  }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -32,7 +32,6 @@ SIGNATURES = {
     "scatter_rows_launch": [P, LL, I, P, P, P, P, P, P],
     "gather_scores_launch": [P, P, P, P, P, LL, I, I, I, I, P],
     "gather_scores_masked_launch": [P, P, P, P, P, P, P, LL, I, I, I, I, P],
-    "gather_scores_serial_launch": [P, P, P, P, P, P, P, LL, I, I, I, I, P],
     "flash_attention_launch": [P, P, P, P, P, I, I, I, I, I, I, I, I, I,
                                F, F, I, P],
     "flash_attention_wgmma_launch": [P, P, P, P, P, I, I, I, I, I, I, I, I, I,
@@ -40,7 +39,7 @@ SIGNATURES = {
     "decode_attention_launch": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, F,
                                 I, I, I, I, P],
     "frontier_hop_launch": [P, P, P, P, P, P, P, P, P, P, P,
-                            LL, I, I, I, I, I, I, I, P],
+                            LL, I, I, I, I, I, I, P],
     "flat_topk_launch": [P, P, P, P, P, P, P, P, P, P,
                          LL, I, I, I, I, P],
     "mamba_scan_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],

@@ -70,11 +70,19 @@ def _stage_plan(d: int, M: int, itemsize: int) -> dict:
                 chunk=chunk, chunks=chunks, smem_bytes=smem)
 
 
-def _launch(name: str, serial: bool, emb: torch.Tensor, neighbors: torch.Tensor,
-            meta: torch.Tensor, frontier: torch.Tensor, queries: torch.Tensor,
-            query_categories: torch.Tensor, done: torch.Tensor,
-            scales: torch.Tensor | None
-            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def frontier_hop(emb: torch.Tensor, neighbors: torch.Tensor,
+                 meta: torch.Tensor, frontier: torch.Tensor,
+                 queries: torch.Tensor, query_categories: torch.Tensor,
+                 done: torch.Tensor, scales: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """emb (N, d) fp32 or int8 with ``scales`` (N,) fp32; neighbors (N, M)
+    int32; meta (N,) int32; frontier (B, F) int32; queries (B, d) fp32;
+    query_categories and done (B,) int32 -> (ids int32, route fp32, res
+    fp32), each (B, F·M). A CPU table takes the plain version."""
+    if emb.device.type == "cpu":
+        return frontier_hop_plain(emb, neighbors, meta, frontier, queries,
+                                  query_categories, done, scales)
+    name = "frontier_hop"
     tensors = (emb, neighbors, meta, frontier, queries, query_categories,
                done) + (() if scales is None else (scales,))
     _build.require_cuda(name, *tensors)
@@ -103,41 +111,10 @@ def _launch(name: str, serial: bool, emb: torch.Tensor, neighbors: torch.Tensor,
         neighbors.data_ptr(), meta.data_ptr(), frontier.data_ptr(),
         queries.data_ptr(), query_categories.data_ptr(), done.data_ptr(),
         ids.data_ptr(), route.data_ptr(), res.data_ptr(),
-        N, d, M, B, F, int(scales is not None), plan["chunk"], int(serial),
-        _build.stream(dev))
+        N, d, M, B, F, int(scales is not None), plan["chunk"], _build.stream(dev))
     _build.check(err, name)
+    _build.count(frontier_hop)
     return ids, route, res
 
 
-def frontier_hop(emb: torch.Tensor, neighbors: torch.Tensor,
-                 meta: torch.Tensor, frontier: torch.Tensor,
-                 queries: torch.Tensor, query_categories: torch.Tensor,
-                 done: torch.Tensor, scales: torch.Tensor | None = None
-                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """emb (N, d) fp32 or int8 with ``scales`` (N,) fp32; neighbors (N, M)
-    int32; meta (N,) int32; frontier (B, F) int32; queries (B, d) fp32;
-    query_categories and done (B,) int32 -> (ids int32, route fp32, res
-    fp32), each (B, F·M). A CPU table takes the plain version."""
-    if emb.device.type == "cpu":
-        return frontier_hop_plain(emb, neighbors, meta, frontier, queries,
-                                  query_categories, done, scales)
-    out = _launch("frontier_hop", False, emb, neighbors, meta, frontier, queries,
-                  query_categories, done, scales)
-    _build.count(frontier_hop)
-    return out
-
-
 frontier_hop.launches = frontier_hop.recorded = 0
-
-
-def frontier_hop_serial(emb: torch.Tensor, neighbors: torch.Tensor,
-                        meta: torch.Tensor, frontier: torch.Tensor,
-                        queries: torch.Tensor, query_categories: torch.Tensor,
-                        done: torch.Tensor, scales: torch.Tensor | None = None
-                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The earlier card design of ``frontier_hop`` (each warp walks its
-    candidates one after another, rows loaded straight from global memory),
-    on a CUDA tensor only. No path calls it: ``chip_smoke.py`` times it
-    beside ``frontier_hop`` on the same inputs."""
-    return _launch("frontier_hop_serial", True, emb, neighbors, meta, frontier,
-                   queries, query_categories, done, scales)

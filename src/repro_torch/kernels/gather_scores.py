@@ -31,10 +31,6 @@ a row whose queries all fail is still read (one round trip saved against
 loading the category first). One that passes goes through the same dot,
 so its score is bit-equal to ``gather_scores``'s. ``ops.hop_scores``
 with categories launches it.
-
-``gather_scores_serial`` launches the earlier design (one warp per (b, k)
-pair, each loading its own row), which no path runs: ``chip_smoke.py``
-times it beside the kernel on the same inputs.
 """
 
 from __future__ import annotations
@@ -141,25 +137,3 @@ def gather_scores_masked(table: torch.Tensor, indices: torch.Tensor,
 
 
 gather_scores_masked.launches = gather_scores_masked.recorded = 0
-
-
-def gather_scores_serial(table: torch.Tensor, indices: torch.Tensor,
-                         queries: torch.Tensor, scales: torch.Tensor | None = None,
-                         slot_categories: torch.Tensor | None = None,
-                         query_categories: torch.Tensor | None = None) -> torch.Tensor:
-    """The earlier card design of ``gather_scores`` (with both category
-    tensors, of ``gather_scores_masked``), on CUDA tensors only and not
-    counted. No path calls it: ``chip_smoke.py`` times it beside the kernel
-    on the same inputs."""
-    cats = () if slot_categories is None else (slot_categories, query_categories)
-    out = _check_gather("gather_scores_serial", table, indices, queries, scales, *cats)
-    B, K = indices.shape
-    err = _build.library().gather_scores_serial_launch(
-        table.data_ptr(), None if scales is None else scales.data_ptr(),
-        indices.data_ptr(), queries.data_ptr(),
-        *(None if t is None else t.data_ptr()
-          for t in (slot_categories, query_categories)),
-        out.data_ptr(), table.shape[0], table.shape[1], B, K, int(scales is not None),
-        _build.stream(table.device))
-    _build.check(err, "gather_scores_serial")
-    return out

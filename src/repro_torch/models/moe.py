@@ -99,14 +99,11 @@ gradient against each expert's transposed weight (a strided view, no
 copy), and the weights' gradient rowsᵀ·dOut as one 2-D × 2-D product
 with the offsets over the rows (an expert with no rows gets zeros); each
 accumulates in fp32 and is cast to its operand's dtype, as
-``_ragged_dot_bwd`` casts. ``grouped_mm_has_backward`` asks whether the
-build differentiates the op by itself, and why not: a logged fact, not a
-gate.
+``_ragged_dot_bwd`` casts.
 """
 
 from __future__ import annotations
 
-import functools
 import math
 import types
 
@@ -261,23 +258,6 @@ def grouped_mm(rows: torch.Tensor, w: torch.Tensor, offs: torch.Tensor
                         f"{w.dtype} experts (an fp32 expert product is not "
                         f"supported on the card)")
     return GroupedMmFn.apply(rows, w, offs, _op_mm)
-
-
-@functools.cache
-def grouped_mm_has_backward(device: str) -> tuple[bool, str]:
-    """Whether ``torch._grouped_mm`` on ``device`` differentiates by itself
-    (one product of two groups of 8 bf16 rows, and its gradients), and the
-    error it raised where it does not ("" where it does). The port does
-    not use that backward (``GroupedMmFn``); the answer is logged."""
-    with torch.enable_grad():
-        rows = torch.ones((16, 16), dtype=torch.bfloat16, device=device, requires_grad=True)
-        w = torch.ones((2, 16, 16), dtype=torch.bfloat16, device=device, requires_grad=True)
-        offs = torch.tensor([8, 16], dtype=torch.int32, device=device)
-        try:
-            torch.autograd.grad(torch._grouped_mm(rows, w, offs=offs).sum(), (rows, w))
-        except (RuntimeError, NotImplementedError) as exc:
-            return False, f"{type(exc).__name__}: {exc}"
-    return True, ""
 
 
 def moe_ffn_routed(x: torch.Tensor, p: dict, cfg, *, aux: bool = True,

@@ -8,6 +8,8 @@ orders). The CUDA kernels themselves are held against these plain
 versions on the card by ``chip_smoke.py``.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -24,7 +26,9 @@ from repro.kernels.gather_scores import (  # noqa: E402
     gather_scores_masked as pallas_gather_scores_masked)
 from repro.kernels.scatter_update import scatter_rows as pallas_scatter_rows  # noqa: E402
 
+from repro_torch.analysis import smem  # noqa: E402
 from repro_torch.core.hnsw import quantize_rows  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flat_topk as tft  # noqa: E402
 from repro_torch.kernels import frontier_hop as tfh  # noqa: E402
 from repro_torch.kernels import gather_scores as tgs  # noqa: E402
@@ -523,6 +527,32 @@ def test_wrappers_raise_off_cpu_instead_of_falling_back():
     with pytest.raises(ValueError):
         tgs.gather_scores_masked(table, idx, q,
                                  torch.empty(16, dtype=torch.int32, device=meta), i32)
-    with pytest.raises(ValueError):  # the earlier design runs on the card only, even for CPU
-        tgs.gather_scores_serial(torch.zeros((16, 8)), torch.zeros((2, 4), dtype=torch.int32),
-                                 torch.zeros((2, 8)))
+
+
+# ------------------------------------------- the kernel tables against csrc/
+def _csrc_entries(pattern: str) -> set[str]:
+    """Names ``pattern`` (one group) finds in ``csrc/*.cu`` once comments,
+    template heads, ``__launch_bounds__`` and ``__cluster_dims__`` are
+    taken out."""
+    names = set()
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        src = re.sub(r"/\*.*?\*/|//[^\n]*", "", path.read_text(), flags=re.S)
+        src = re.sub(r"template\s*<[^<>]*>|__(launch_bounds|cluster_dims)__\s*\([^()]*\)",
+                     " ", src)
+        names.update(re.findall(pattern, src))
+    return names
+
+
+@pytest.mark.parametrize("table,pattern", [
+    ("SIGNATURES", r'extern\s+"C"\s+int\s+(\w+)\s*\('),
+    ("MAX_THREADS", r"__global__\s+void\s+(\w+)\s*\("),
+])
+def test_kernel_tables_name_exactly_the_sources_entries(table, pattern):
+    """``_build.SIGNATURES`` holds one signature for each C entry the
+    library defines, and ``smem.MAX_THREADS`` one block size for each
+    kernel: no entry is missing, and none names code that is gone."""
+    entries = _csrc_entries(pattern)
+    keys = set(_build.SIGNATURES if table == "SIGNATURES" else smem.MAX_THREADS)
+    assert entries, f"no entries parsed for {table}"
+    assert keys == entries, (f"{table} only: {sorted(keys - entries)}; "
+                             f"csrc only: {sorted(entries - keys)}")
